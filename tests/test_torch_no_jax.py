@@ -1,0 +1,34 @@
+"""The port never imports jax: every module of ``wrf_partmc_tpu_torch`` is
+imported in a fresh interpreter, which must end with no jax module loaded
+and, of the JAX package, only its jax-free ``config`` and ``constants``."""
+
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = """
+import importlib, json, pkgutil, sys
+import wrf_partmc_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+print(json.dumps({"modules": names,
+                  "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))),
+                  "reference": sorted(m for m in sys.modules if m.startswith("wrf_partmc_tpu."))}))
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "wrf_partmc_tpu_torch.entry" in out["modules"]
+    assert "wrf_partmc_tpu_torch.models.coupled.driver" in out["modules"]
+    assert out["jax"] == []
+    assert set(out["reference"]) <= {"wrf_partmc_tpu.config", "wrf_partmc_tpu.constants"}

@@ -1,0 +1,86 @@
+"""Entry point of the port: the em_uniform coupled model, chemistry off.
+
+``build`` is the twin of ``__graft_entry__._build`` of the JAX package: the
+same configuration, source universe, scenario, initial state and seeds, so
+both packages start from the same state and draw the same random streams.
+
+    model, state = build(40, 40, 10, n_part=1000, cap=1280, device="cuda")
+    for _ in range(n):
+        state = model(state)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from wrf_partmc_tpu.config import DomainConfig, PartmcConfig, uniform_test_config
+
+from .grid import make_grid
+from .models.coupled.driver import CoupledModel, init_coupled
+from .models.coupled.init import populate_from_dist
+from .models.dycore.ideal import init_uniform
+from .models.partmc.aero_data import make_aero_data
+from .models.partmc.dist import concat_dists, make_mode
+from .models.partmc.gas_data import make_gas_data
+from .models.partmc.scenario import constant_scenario
+from .models.partmc.sources import build_universe, validate_universe
+from .models.physics.pbl import k_profile_exch_h
+from .utils import rng
+
+# (name, number conc [# m-3 s-1], geometric mean diameter [m], sigma_g):
+# one IC background plus six emission sources, each its own weight class
+EMISSION_SOURCES = (("traffic", 4e4, 5e-8, 1.8), ("industry", 2e4, 1e-7, 2.0),
+                    ("biomass", 1e4, 8e-8, 1.7), ("dust", 5e3, 5e-7, 1.9),
+                    ("cooking", 2e4, 6e-8, 1.6), ("shipping", 1e4, 9e-8, 1.8))
+
+
+def make_config(nx, ny, nz, n_part, cap, everything_on=True, chem_dt=60.0):
+    """The em_uniform configuration of ``__graft_entry__._build`` with live
+    dynamics (chemistry off)."""
+    cfg = uniform_test_config().replace(
+        domain=DomainConfig(nx=nx, ny=ny, nz=nz, dx=2000.0, dy=2000.0, ztop=2000.0),
+        partmc=PartmcConfig(num_particles=n_part, max_particles=cap,
+                            n_emit_slots=4, partmc_chem_dt=chem_dt,
+                            do_coagulation=everything_on,
+                            do_emission=everything_on,
+                            do_deposition=everything_on,
+                            do_mosaic=False, do_transport=True))
+    return cfg.replace(dynamics=dataclasses.replace(cfg.dynamics,
+                                                    constant_velocity=False))
+
+
+def build(nx=12, ny=12, nz=4, n_part=16, cap=48, everything_on=True,
+          chem_on=False, chem_dt=60.0, device="cpu"):
+    """Build the coupled model and its initial state on ``device``.
+    Returns ``(CoupledModel, CoupledState)``."""
+    if chem_on:
+        raise NotImplementedError(
+            "chem_on=True needs CBM-Z + MOSAIC, which is not ported yet "
+            "(ROADMAP.md, section 1, item 10: Chemistry)")
+    torch.backends.cuda.matmul.allow_tf32 = False   # full-f32 einsums/matmuls
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = make_config(nx, ny, nz, n_part, cap, everything_on, chem_dt)
+    ad = make_aero_data(device=device)
+    gd = make_gas_data(device=device)
+    vf = np.zeros(ad.n_spec)
+    vf[0] = 1.0
+    em_named = [(name, make_mode(nc, gmd, gsd, vf, device=device))
+                for name, nc, gmd, gsd in EMISSION_SOURCES]
+    uni, (ic,), _, em_d = build_universe(
+        ic=[("background", make_mode(1e9, 1e-7, 1.6, vf, device=device))],
+        emissions=em_named)
+    cfg = cfg.replace(n_class=max(8, uni.n_class))
+    validate_universe(uni, cfg.n_class)
+    grid = make_grid(cfg, device=device)
+    scn = constant_scenario(ad, gd.n_spec, concat_dists(em_d))
+    dyn = init_uniform(cfg, grid, 5.0, 2.0)
+    cs = init_coupled(cfg, grid, ad, gd, dyn)
+    aero = populate_from_dist(ad, cfg, grid, ic, rng.key(0))
+    cs = dataclasses.replace(cs, aero=aero)
+    exch = k_profile_exch_h(grid, 0.4, 800.0)
+    model = CoupledModel(cfg, grid, ad, scn, exch, seed=0)
+    return model, cs
+

@@ -1,0 +1,282 @@
+"""The coupled WRF-PartMC timestep.
+
+Port of the single-device path of ``wrf_partmc_tpu/models/coupled/driver.py``
+(``mesh=None``, ``bdy=None``): partmc_to_wrf -> ARW dycore -> implicit
+vertical diffusion -> partmc_from_wrf -> emission -> coagulation (every
+``partmc_chem_dt``) -> stochastic transport -> surface deposition ->
+rebalance.
+
+:class:`CoupledModel` holds the static tables (grid metrics, ``AeroData``,
+``Scenario``, ``exch_h``) as registered buffers, so ``.to(device)`` moves
+them all; ``forward(state)`` returns the next :class:`CoupledState`.  The
+step counter is a host int, so the reference's ``lax.cond`` on the chemistry
+cadence is a Python ``if``.
+
+Units at the coupling surface: chem tracers carry ppm, gas states ppb;
+NUM_CONC class tracers carry number per kg of dry air, particle
+populations absolute represented number per cell.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from wrf_partmc_tpu import constants as c
+from wrf_partmc_tpu.config import Config
+
+from ...grid import Grid
+from ...ops.stencil import AXIS_X, AXIS_Y, shift
+from ...ops.vdiff import vertical_diffusion_state
+from ...utils import rng
+from ...utils.tree import tensor_leaves, tree_map, with_leaves
+from ..dycore.solve import solve_step
+from ..dycore.state import DycoreState, base_profiles, temperature, total_pressure
+from ..partmc.aero_data import AeroData, particle_mass, particle_volume
+from ..partmc.aero_state import AeroState, rebalance, zero_state
+from ..partmc.coag import coag_step
+from ..partmc.deposition import aerodynamic_resistance, deposition_velocity
+from ..partmc.env_state import EnvState
+from ..partmc.gas_data import GasData
+from ..partmc.scenario import Scenario, update_aero_state, update_gas_state
+from ..physics.thermo import relative_humidity
+from .transport import transport_step
+
+
+@dataclass(frozen=True)
+class CoupledState:
+    dyn: DycoreState
+    aero: AeroState          # cell shape (nz, ny, nx)
+    gas: torch.Tensor        # [nz, ny, nx, G] ppb
+    step: int                # host step counter
+
+    def to(self, device) -> "CoupledState":
+        return tree_map(lambda t: t.to(device), self)
+
+
+def cell_air_mass(dyn: DycoreState, grid: Grid):
+    """[nz, ny, nx] dry-air mass per cell [kg]: m = mu_d deta dA / g."""
+    mu_d = grid.mub + dyn.mu
+    return (mu_d[None] * grid.deta.reshape(-1, 1, 1) / c.GRAV
+            * (grid.dx * grid.dy))
+
+
+def cell_volume_3d(dyn: DycoreState, grid: Grid):
+    """[nz, ny, nx] actual grid-cell volume [m3] from the geopotential."""
+    phi = grid.phb + dyn.ph
+    dz = (phi[1:] - phi[:-1]) / c.GRAV
+    return dz * (grid.dx * grid.dy)
+
+
+def step_time(step: int, dt: float) -> float:
+    """Model time of a step as the reference computes it (f32 step * dt)."""
+    return float(np.float32(np.float32(step) * np.float32(dt)))
+
+
+def make_env(dyn: DycoreState, grid: Grid, cfg: Config, step: int) -> EnvState:
+    """Per-cell environment from the dycore state; u* is diagnosed from the
+    first-level wind with the neutral log law."""
+    temp = temperature(dyn, grid)
+    pres = total_pressure(dyn, grid)
+    rh = relative_humidity(dyn.moist[0], temp, pres)
+    vol = cell_volume_3d(dyn, grid)
+    u1 = 0.5 * (dyn.u[0] + shift(dyn.u[0], 1, AXIS_X))
+    v1 = 0.5 * (dyn.v[0] + shift(dyn.v[0], 1, AXIS_Y))
+    spd = torch.sqrt(u1 * u1 + v1 * v1)
+    logz = torch.log(torch.clamp(grid.z_half[0] / cfg.dynamics.sfc_z0, min=1.1))
+    us2d = c.KARMAN * torch.clamp(spd, min=0.1) / logz
+    ustar = us2d.expand(temp.shape)
+    phi = grid.phb + dyn.ph
+    z = 0.5 * (phi[1:] + phi[:-1]) / c.GRAV
+    return EnvState(temp=temp, pressure=pres, rel_humid=rh, height=z,
+                    cell_volume=vol, ustar=ustar,
+                    elapsed_time=step_time(step, cfg.dynamics.dt))
+
+
+def partmc_to_wrf(cs: CoupledState, grid: Grid, cfg: Config) -> DycoreState:
+    """Particle number per class and gases into the Eulerian tracers."""
+    air_mass = cell_air_mass(cs.dyn, grid)
+    nbc = cs.aero.num_by_class(cfg.n_class)                  # [nz,ny,nx,C]
+    num_tr = nbc.movedim(-1, 0) / air_mass
+    chem = cs.gas.movedim(-1, 0) / 1000.0                    # ppb -> ppm
+    return dataclasses.replace(cs.dyn, num_conc=num_tr.contiguous(),
+                               chem=chem.contiguous())
+
+
+def partmc_from_wrf(dyn: DycoreState) -> torch.Tensor:
+    """Advected gases back to the particle model, ppm -> ppb."""
+    return dyn.chem.movedim(0, -1) * 1000.0
+
+
+def emission_step(aero: AeroState, gas, env: EnvState, aero_data: AeroData,
+                  scn: Scenario, cfg: Config, t, key):
+    """Per-dt scenario forcing (emission on): gas emission/dilution and
+    aerosol emission/dilution."""
+    pc = cfg.partmc
+    dt = cfg.dynamics.dt
+    k_scn, _k_ss = rng.split(key)
+    gas = update_gas_state(scn, gas, t, dt)
+    aero = update_aero_state(scn, aero, aero_data, t, dt, k_scn,
+                             pc.n_emit_slots, env.cell_volume)
+    return aero, gas
+
+
+def microphysics_step(aero: AeroState, env: EnvState, aero_data: AeroData,
+                      cfg: Config, key) -> AeroState:
+    """The chem-macro-step work with chemistry off: coagulation."""
+    k_coag, _k_scn, _k_ss = rng.split(key, 3)
+    return coag_step(aero, aero_data, env, cfg.partmc.partmc_chem_dt, k_coag)
+
+
+def surface_deposition(aero: AeroState, env: EnvState, aero_data: AeroData,
+                       grid: Grid, cfg: Config, key, dz1=None) -> AeroState:
+    """Dry deposition from the lowest model layer, stochastic per-particle
+    removal.  ``dz1`` [ny, nx]: the geopotential first-layer depth."""
+    diam = torch.clamp(aero.wet_diameter(), min=1e-9)
+    pvol = particle_volume(aero.vol)
+    mass = particle_mass(aero.vol, aero_data)
+    rho_p = mass / torch.clamp(pvol, min=0.0)                  # 1e-300 is 0 in f32
+    r_a = aerodynamic_resistance(env, grid.z_half[0], z0=cfg.dynamics.sfc_z0)
+    v_d = deposition_velocity(diam, rho_p, env, r_a)
+    depth1 = grid.dz[0] if dz1 is None else dz1[None, :, :, None]
+    p_rem = torch.clamp(v_d * cfg.dynamics.dt / depth1, 0.0, 1.0)
+    k0 = torch.arange(aero.num.shape[0], device=p_rem.device).reshape(-1, 1, 1, 1) == 0
+    p_rem = torch.where(k0, p_rem, 0.0)
+    u = rng.uniform(key, aero.num.shape, aero.num.device)
+    keep = (u >= p_rem) & aero.alive
+    return dataclasses.replace(
+        aero, num=torch.where(keep, aero.num, 0.0),
+        vol=torch.where(keep[..., None, :], aero.vol, 0.0))
+
+
+def check_supported(cfg: Config) -> None:
+    """Refuse configurations whose code paths are not ported yet."""
+    d, p, b = cfg.dynamics, cfg.partmc, cfg.boundary
+    off = {
+        "partmc.do_mosaic (chemistry; ROADMAP: chemistry slice)": p.do_mosaic,
+        "partmc.do_condensation": p.do_condensation,
+        "partmc.do_nucleation": p.do_nucleation,
+        "partmc.seasalt_param": p.seasalt_param,
+        "partmc.do_optical": p.do_optical,
+        "partmc.record_removals": p.record_removals,
+        "partmc.record_aero_info": p.record_aero_info,
+        "dynamics.bl_physics": d.bl_physics,
+        "dynamics.ra_physics": d.ra_physics,
+        "dynamics.cu_physics": d.cu_physics,
+        "dynamics.mp_physics": d.mp_physics,
+        "dynamics.sf_surface_physics": d.sf_surface_physics,
+        "open lateral boundaries": not (b.periodic_x and b.periodic_y),
+        "dynamics.dyn_opt != 'arw'": d.dyn_opt != "arw",
+    }
+    bad = [name for name, on in off.items() if on]
+    if bad:
+        raise NotImplementedError("not ported yet: " + ", ".join(bad))
+
+
+def coupled_step(cs: CoupledState, grid: Grid, cfg: Config,
+                 aero_data: AeroData, scn: Scenario, exch_h, base_seed_key):
+    """One full coupled timestep.  Returns (new_state, transport diag)."""
+    pc = cfg.partmc
+    dt = cfg.dynamics.dt
+    m_chem = max(1, int(round(pc.partmc_chem_dt / dt)))
+    keys = {s: rng.step_key(base_seed_key, cs.step, s)
+            for s in (rng.STREAM_COAG, rng.STREAM_EMISSION,
+                      rng.STREAM_TRANSPORT, rng.STREAM_DEPOSITION,
+                      rng.STREAM_REBALANCE)}
+
+    dyn = partmc_to_wrf(cs, grid, cfg)
+    dyn2, diag = solve_step(dyn, grid, cfg)
+    aero = cs.aero
+    t = step_time(cs.step, dt)
+
+    if cfg.dynamics.vert_diff_fields and not cfg.dynamics.constant_velocity:
+        rho_b, _, _ = base_profiles(grid)
+        kv = exch_h
+        if cfg.dynamics.diff_opt == 1 and cfg.dynamics.kvdif > 0:
+            kv = kv + cfg.dynamics.kvdif
+        dyn2 = vertical_diffusion_state(dyn2, kv, grid, rho_b, dt)
+
+    gas = partmc_from_wrf(dyn2)
+    env = make_env(dyn2, grid, cfg, cs.step)
+
+    if pc.do_emission:
+        aero, gas = emission_step(aero, gas, env, aero_data, scn, cfg, t,
+                                  keys[rng.STREAM_EMISSION])
+    else:
+        gas = update_gas_state(scn, gas, t, dt)
+
+    if pc.do_coagulation and cs.step % m_chem == 0:
+        aero = microphysics_step(aero, env, aero_data, cfg,
+                                 keys[rng.STREAM_COAG])
+
+    tdiag = {}
+    dz3 = None
+    if pc.do_transport:
+        vol3 = cell_volume_3d(dyn2, grid)
+        rho3 = cell_air_mass(dyn2, grid) / vol3
+        dz3 = vol3 / (grid.dx * grid.dy)
+        aero, tdiag = transport_step(aero, diag.probs, diag.xkhh, exch_h, grid,
+                                     cfg, dt, keys[rng.STREAM_TRANSPORT],
+                                     rho3=rho3, dz3=dz3)
+    if pc.do_deposition:
+        aero = surface_deposition(aero, env, aero_data, grid, cfg,
+                                  keys[rng.STREAM_DEPOSITION],
+                                  dz1=dz3[0] if dz3 is not None else None)
+    aero = rebalance(aero, keys[rng.STREAM_REBALANCE], pc.num_particles,
+                     pc.allow_halving, pc.allow_doubling)
+    return CoupledState(dyn=dyn2, aero=aero, gas=gas, step=cs.step + 1), tdiag
+
+
+def init_coupled(cfg: Config, grid: Grid, aero_data: AeroData,
+                 gas_data: GasData, dyn: DycoreState) -> CoupledState:
+    dev = grid.dz.device
+    aero = zero_state(aero_data, cfg.partmc.max_particles,
+                      cell_shape=(grid.nz, grid.ny, grid.nx), device=dev)
+    gas = torch.zeros((grid.nz, grid.ny, grid.nx, gas_data.n_spec),
+                      dtype=torch.float32, device=dev)
+    return CoupledState(dyn=dyn, aero=aero, gas=gas, step=0)
+
+
+class CoupledModel(torch.nn.Module):
+    """The coupled step as a module.  Static tables are registered buffers
+    (non-persistent): grid metrics, ``AeroData``, ``Scenario`` and
+    ``exch_h``.  ``forward(state)`` returns the next state; the transport
+    counters of the last step are kept in ``last_diag``."""
+
+    def __init__(self, cfg: Config, grid: Grid, aero_data: AeroData,
+                 scn: Scenario, exch_h, seed: int = 0):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        self.base_key = rng.base_key(seed)
+        self._templates = {}
+        for name, obj in (("grid", grid), ("aero_data", aero_data), ("scn", scn)):
+            self._templates[name] = obj
+            for buf, t in tensor_leaves(obj, name).items():
+                self.register_buffer(buf, t, persistent=False)
+        self.register_buffer("exch_h", exch_h, persistent=False)
+        self.last_diag = {}
+
+    def _table(self, name: str):
+        return with_leaves(self._templates[name], name, dict(self.named_buffers()))
+
+    @property
+    def grid(self) -> Grid:
+        return self._table("grid")
+
+    @property
+    def aero_data(self) -> AeroData:
+        return self._table("aero_data")
+
+    @property
+    def scn(self) -> Scenario:
+        return self._table("scn")
+
+    def forward(self, state: CoupledState) -> CoupledState:
+        out, self.last_diag = coupled_step(state, self.grid, self.cfg,
+                                           self.aero_data, self.scn,
+                                           self.exch_h, self.base_key)
+        return out

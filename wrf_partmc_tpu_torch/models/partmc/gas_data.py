@@ -1,0 +1,39 @@
+"""Gas species registry (port of ``make_gas_data`` of
+``wrf_partmc_tpu/models/partmc/gas_data.py``).  A gas state is a [..., G]
+tensor of mix ratios in ppb."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+# A representative subset of the CBM-Z gas list (full MOSAIC runs carry 77);
+# molecular weights in kg/mol.
+DEFAULT_GASES = (
+    ("H2SO4", 98.0e-3), ("HNO3", 63.0e-3), ("HCl", 36.5e-3), ("NH3", 17.0e-3),
+    ("NO", 30.0e-3), ("NO2", 46.0e-3), ("NO3", 62.0e-3), ("N2O5", 108.0e-3),
+    ("HONO", 47.0e-3), ("HNO4", 79.0e-3), ("O3", 48.0e-3), ("O1D", 16.0e-3),
+    ("O3P", 16.0e-3), ("OH", 17.0e-3), ("HO2", 33.0e-3), ("H2O2", 34.0e-3),
+    ("CO", 28.0e-3), ("SO2", 64.0e-3), ("CH4", 16.0e-3), ("C2H6", 30.0e-3),
+    ("CH3O2", 47.0e-3), ("ETHP", 61.0e-3), ("HCHO", 30.0e-3), ("CH3OH", 32.0e-3),
+    ("ANOL", 46.0e-3), ("CH3OOH", 48.0e-3), ("ETHOOH", 62.0e-3), ("ALD2", 44.0e-3),
+    ("HCOOH", 46.0e-3), ("RCOOH", 60.0e-3), ("C2O3", 75.0e-3), ("PAN", 121.0e-3),
+)
+
+
+@dataclass(frozen=True)
+class GasData:
+    molec_weight: torch.Tensor   # [G] kg mol-1
+    names: tuple = ()
+
+    @property
+    def n_spec(self) -> int:
+        return len(self.names)
+
+
+def make_gas_data(gases=DEFAULT_GASES, device="cpu") -> GasData:
+    return GasData(molec_weight=torch.as_tensor(
+        np.asarray([g[1] for g in gases], np.float32), device=device),
+        names=tuple(g[0] for g in gases))

@@ -1,0 +1,101 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+The sources in ``wrf_partmc_tpu_torch/csrc/*.cu`` expose a plain C
+interface and are compiled at first use, with ``nvcc`` for ``sm_90a``, into
+one shared library under ``build/kernels/`` at the root of the checkout
+(git-ignored); the library is bound with ``ctypes``.  The file name carries
+a hash of the sources, so an edited source is rebuilt and a stale library is
+never loaded.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_SIGNATURES = {
+    "wpt_thomas_solve_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _LL, _LL,
+                             _LL, _LL, _P],
+    "wpt_scatter_rows_f32": [_P, _P, _P, _LL, _I, _I, _I, _P],
+    "wpt_gather_rows_f32": [_P, _P, _P, _LL, _I, _I, _I, _P],
+}
+
+_lib = None
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and Path(cand).exists():
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a host "
+                       "with the CUDA toolkit")
+
+
+def build() -> Path:
+    """Compile every ``csrc/*.cu`` into one shared library (once per source
+    hash) and return its path."""
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256()
+    for s in sources:
+        digest.update(s.name.encode())
+        digest.update(s.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / f"libwpt_kernels_{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        build_info.update(path=str(out), seconds=0.0, cached=True)
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    build_info.update(path=str(out), seconds=seconds, cached=False,
+                      ptxas=proc.stderr)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def stream_ptr(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
