@@ -13,7 +13,22 @@ Phases, each printed on its own line and each fatal on failure:
    from the same state;
 5. main path: the em_uniform coupled step at 40x40x10 cells, 1000 particles
    per cell (capacity 1280), chemistry off: one warm-up step and six timed
-   steps (one full coagulation cadence), with every kernel's launch count.
+   steps (one full coagulation cadence), with every kernel's launch count;
+6. card against CPU, chemistry on: the CBM-Z rate coefficients (the
+   subnormal-prefactor DMS rate against float64), then one chem-on coupled
+   step (77-gas CBM-Z + MOSAIC, 0.2 ppb DMS) at 12x12x4, chem_dt 60 s, on
+   ``cuda`` and on ``cpu``;
+7. chem-on main path: 40x40x10, 100 particles per cell (capacity 128),
+   chem_dt 300 s: a warm-up step (step 0, chemistry) and 30 timed steps
+   (steps 1-30, one chemistry macro-step), with every kernel's launch count;
+8. the chemistry macro-step alone at full width, split into CBM-Z (rate
+   coefficients, Jacobian, fast_inv, substeps), ASTEM and SOA;
+9. the 40-class universe: two steps at 40x40x10, 1000 per cell,
+   ``n_sources=38``, chemistry off, with every kernel's launch count.
+
+After each of the paths 5, 7 and 9, every kernel is held against its plain
+version at each argument shape that path launched it with and no earlier
+check held.
 
 The line before the last is the kernel summary as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -99,144 +114,248 @@ def _rand_unique_dst(gen, C, L1, L2, drop_frac, device):
     return torch.where(drop, -1, dst).contiguous()
 
 
-def phase_kernels(kernels: dict):
-    import torch
-
+def _kernel_fns():
     from wrf_partmc_tpu_torch.ops import place, tridiag
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
+    return {"thomas_solve": tridiag.thomas_solve,
+            "scatter_rows": place.scatter_rows_cuda,
+            "gather_rows": place.gather_rows_cuda}
 
-    def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=dev)
 
+def reset_counts():
+    for fn in _kernel_fns().values():
+        fn.launches = 0
+        fn.shapes = set()
+
+
+def read_counts():
+    """(launches, argument shapes) of each kernel since ``reset_counts``."""
+    fns = _kernel_fns()
+    return ({k: fn.launches for k, fn in fns.items()},
+            {k: set(fn.shapes) for k, fn in fns.items()})
+
+
+def check_thomas(gen, shapes):
+    """K1 against solve_scan on random inputs with the argument shapes
+    (dl, d, du, b): off-diagonals in [-1, 1), main diagonal 4 + |N(0, 1)|,
+    so every column is diagonally dominant; rel err <= 1e-5 of the largest
+    value.  Returns (max_abs_err, kernel ms, plain ms)."""
+    import torch
+
+    from wrf_partmc_tpu_torch.ops import tridiag
+
+    rnd = lambda sh: torch.randn(sh, generator=gen, device="cuda")
+    off = lambda sh: 2.0 * torch.rand(sh, generator=gen, device="cuda") - 1.0
+    dl_s, d_s, du_s, b_s = shapes
+    dl, du, b = off(dl_s), off(du_s), rnd(b_s)
+    d = 4.0 + rnd(d_s).abs()
+    x_k = tridiag.thomas_solve(dl, d, du, b)
+    x_p = tridiag.solve_scan(dl, d, du, b)
+    torch.cuda.synchronize()
+    err = float((x_k - x_p).abs().max())
+    rel = err / float(x_p.abs().max())
+    ms = cuda_ms(lambda: tridiag.thomas_solve(dl, d, du, b))
+    pms = cuda_ms(lambda: tridiag.solve_scan(dl, d, du, b))
+    print(f"[kernels] K1 thomas_solve rhs {list(b_s)} coefficients {list(d_s)}: "
+          f"max_abs_err {err:.3e} max_rel_err {rel:.3e} kernel {ms:.4f} ms plain "
+          f"{pms:.4f} ms")
+    require(rel <= 1e-5, f"K1 at rhs {b_s} disagrees with plain: rel {rel}")
+    return err, ms, pms
+
+
+def check_scatter(gen, shapes):
+    """K2 against scatter_rows_plain, bit for bit, on a payload of
+    ``shapes[0]`` into ``shapes[1]`` slots, with unique destinations and a
+    tenth of the rows dropped.  Returns (max_abs_err, ms, plain ms)."""
+    import torch
+
+    from wrf_partmc_tpu_torch.ops import place
+
+    x_shape, L2 = shapes
+    C, CH, L1 = x_shape
+    x = torch.randn(x_shape, generator=gen, device="cuda")
+    dst = _rand_unique_dst(gen, C, L1, L2, 0.1, x.device)
+    out_k = place.scatter_rows_cuda(x, dst, L2)
+    out_p = place.scatter_rows_plain(x, dst, L2)
+    torch.cuda.synchronize()
+    require(torch.equal(out_k, out_p), f"K2 scatter {list(x_shape)}->{L2} not bit-exact")
+    err = float((out_k - out_p).abs().max())
+    del out_k, out_p
+    ms = cuda_ms(lambda: place.scatter_rows_cuda(x, dst, L2))
+    pms = cuda_ms(lambda: place.scatter_rows_plain(x, dst, L2))
+    gbs = 2 * x.numel() * 4 / (ms * 1e-3) / 1e9
+    print(f"[kernels] K2 scatter_rows {list(x_shape)}->{L2}: bit-exact, kernel "
+          f"{ms:.4f} ms ({gbs:.0f} GB/s moved) plain {pms:.4f} ms")
+    return err, ms, pms
+
+
+def check_gather(gen, shapes):
+    """K3 against gather_rows_plain, bit for bit, from a payload of
+    ``shapes[0]`` into ``shapes[1]`` slots, with -1s and duplicate sources.
+    Returns (max_abs_err, ms, plain ms)."""
+    import torch
+
+    from wrf_partmc_tpu_torch.ops import place
+
+    x_shape, L2 = shapes
+    C, CH, L1 = x_shape
+    x = torch.randn(x_shape, generator=gen, device="cuda")
+    src = torch.randint(-1, L1, (C, L2), generator=gen, device="cuda", dtype=torch.int32)
+    out_k = place.gather_rows_cuda(x, src)
+    out_p = place.gather_rows_plain(x, src)
+    torch.cuda.synchronize()
+    require(torch.equal(out_k, out_p), f"K3 gather {list(x_shape)}->{L2} not bit-exact")
+    err = float((out_k - out_p).abs().max())
+    n_out = out_k.numel()
+    del out_k, out_p
+    ms = cuda_ms(lambda: place.gather_rows_cuda(x, src))
+    pms = cuda_ms(lambda: place.gather_rows_plain(x, src))
+    gbs = 2 * n_out * 4 / (ms * 1e-3) / 1e9
+    print(f"[kernels] K3 gather_rows {list(x_shape)}->{L2}: bit-exact, kernel "
+          f"{ms:.4f} ms ({gbs:.0f} GB/s moved) plain {pms:.4f} ms")
+    return err, ms, pms
+
+
+CHECKS = {"thomas_solve": check_thomas, "scatter_rows": check_scatter,
+          "gather_rows": check_gather}
+CHECKED = {k: set() for k in CHECKS}     # argument shapes already held
+
+
+def hold(kernels: dict, gen, name: str, shapes):
+    """Hold kernel ``name`` against its plain version at ``shapes``; the
+    kernels line reports the largest error of all its checks."""
+    res = CHECKS[name](gen, shapes)
+    kernels[name]["max_abs_err"] = max(kernels[name].get("max_abs_err", 0.0), res[0])
+    CHECKED[name].add(shapes)
+    return res
+
+
+def phase_kernels(kernels: dict):
+    """Each kernel at the chem-off main path's shapes, with its times for
+    the kernel table (PERF.md)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
     # K1: acoustic W'' solve (nz-1 = 9 faces x 1600 columns) and the vdiff
     # solve of the 32 chem tracers ([10, 32, 40, 40] rhs, [10, 1, 40, 40]
     # coefficients read by column modulus)
-    k1 = []
-    for label, cshape, bshape in (("acoustic", (9, 40, 40), (9, 40, 40)),
-                                  ("vdiff", (10, 1, 40, 40), (10, 32, 40, 40))):
-        dl, du = rnd(*cshape), rnd(*cshape)
-        d = 4.0 + rnd(*cshape).abs()
-        b = rnd(*bshape)
-        x_k = tridiag.thomas_solve(dl, d, du, b)
-        x_p = tridiag.solve_scan(dl, d, du, b)
-        torch.cuda.synchronize()
-        err = float((x_k - x_p).abs().max())
-        rel = err / float(x_p.abs().max())
-        ms = cuda_ms(lambda: tridiag.thomas_solve(dl, d, du, b))
-        pms = cuda_ms(lambda: tridiag.solve_scan(dl, d, du, b))
-        print(f"[kernels] K1 thomas_solve {label} rhs {list(bshape)}: max_abs_err "
-              f"{err:.3e} max_rel_err {rel:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms")
-        require(rel <= 1e-5, f"K1 {label} disagrees with plain: rel {rel}")
-        k1.append((err, ms, pms))
-    kernels["thomas_solve"].update(max_abs_err=max(e for e, _, _ in k1),
-                                   ms=k1[1][1], plain_ms=k1[1][2])
-
+    k1 = [hold(kernels, gen, "thomas_solve", (c, c, c, b)) for c, b in
+          (((9, 40, 40), (9, 40, 40)), ((10, 1, 40, 40), (10, 32, 40, 40)))]
     # K2/K3 at full width: C = 16000 cells, CH = 33 channels, P = 1280
     C, CH, P, F1, AB = 16000, 33, 1280, 1120, 400
-    res = {}
-    for label, L1, L2 in (("T1", P, F1), ("T2", AB, AB)):
-        x = rnd(C, CH, L1)
-        dst = _rand_unique_dst(gen, C, L1, L2, 0.1, dev)
-        out_k = place.scatter_rows_cuda(x, dst, L2)
-        out_p = place.scatter_rows_plain(x, dst, L2)
-        torch.cuda.synchronize()
-        require(torch.equal(out_k, out_p), f"K2 scatter {label} not bit-exact")
-        err = float((out_k - out_p).abs().max())
-        ms = cuda_ms(lambda: place.scatter_rows_cuda(x, dst, L2))
-        pms = cuda_ms(lambda: place.scatter_rows_plain(x, dst, L2))
-        gbs = 2 * x.numel() * 4 / (ms * 1e-3) / 1e9
-        print(f"[kernels] K2 scatter_rows {label} [{C},{CH},{L1}]->{L2}: bit-exact, "
-              f"kernel {ms:.4f} ms ({gbs:.0f} GB/s moved) plain {pms:.4f} ms")
-        res[("K2", label)] = (ms, pms, err)
-        del x, dst, out_k, out_p
-    for label, L1 in (("T2", AB), ("coag", P)):
-        x = rnd(C, CH, L1)
-        src = torch.randint(-1, L1, (C, P), generator=gen, device=dev,
-                            dtype=torch.int32)          # -1s and duplicates
-        out_k = place.gather_rows_cuda(x, src)
-        out_p = place.gather_rows_plain(x, src)
-        torch.cuda.synchronize()
-        require(torch.equal(out_k, out_p), f"K3 gather {label} not bit-exact")
-        err = float((out_k - out_p).abs().max())
-        ms = cuda_ms(lambda: place.gather_rows_cuda(x, src))
-        pms = cuda_ms(lambda: place.gather_rows_plain(x, src))
-        gbs = 2 * out_k.numel() * 4 / (ms * 1e-3) / 1e9
-        print(f"[kernels] K3 gather_rows {label} [{C},{CH},{L1}]->{P}: bit-exact, "
-              f"kernel {ms:.4f} ms ({gbs:.0f} GB/s moved) plain {pms:.4f} ms")
-        res[("K3", label)] = (ms, pms, err)
-        del x, src, out_k, out_p
-    for name, k, main in (("scatter_rows", "K2", "T1"), ("gather_rows", "K3", "T2")):
-        kernels[name].update(
-            max_abs_err=max(v[2] for key, v in res.items() if key[0] == k),
-            ms=res[(k, main)][0], plain_ms=res[(k, main)][1])
+    k2 = [hold(kernels, gen, "scatter_rows", ((C, CH, L1), L2))
+          for L1, L2 in ((P, F1), (AB, AB))]
+    k3 = [hold(kernels, gen, "gather_rows", ((C, CH, L1), P)) for L1 in (AB, P)]
+    for name, res, main in (("thomas_solve", k1, 1), ("scatter_rows", k2, 0),
+                            ("gather_rows", k3, 0)):
+        kernels[name].update(ms=res[main][1], plain_ms=res[main][2])
     torch.cuda.empty_cache()
 
 
-def phase_card_vs_cpu():
+def phase_path_shapes(label: str, kernels: dict, shapes: dict):
+    """Each kernel at every argument shape a path gave it (``read_counts``)
+    that no earlier check held, against its plain version."""
     import torch
 
-    from wrf_partmc_tpu_torch.entry import build
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    new = {k: sorted(v - CHECKED[k]) for k, v in shapes.items()}
+    print(f"[kernels] {label}: shapes launched "
+          + json.dumps({k: len(v) for k, v in shapes.items()})
+          + ", not yet held " + json.dumps({k: len(v) for k, v in new.items()}))
+    for name, todo in new.items():
+        for sh in todo:
+            hold(kernels, gen, name, sh)
+            torch.cuda.empty_cache()
 
-    model, state = build(12, 12, 4, n_part=16, cap=48, device="cpu")
-    out_cpu = model(state)
-    model_gpu = model.to("cuda")
-    out_gpu = model_gpu(state.to("cuda")).to("cpu")
-    worst = {}
-    # dycore: the rule of the CPU parity test against the JAX package
-    # (tests/test_torch_coupled.py): rtol 1e-4, absolute floor 1e-4 of the
-    # field's scale, with roundoff-sized floors for w and ph in uniform flow
+
+DYN_FIELDS = ("u", "v", "w", "theta_p", "p_p", "mu", "ph", "moist", "chem",
+              "num_conc", "tke")
+
+
+def compare_card_cpu(tag: str, out_gpu, out_cpu) -> str:
+    """Hold a step on the card against the same step on the CPU: every dycore
+    field by the rule of the CPU parity tests against the JAX package
+    (tests/test_torch_coupled.py, tests/test_torch_chem_coupled.py): rtol
+    1e-4, absolute floor 1e-4 of the field's scale, with roundoff-sized
+    floors for w and ph in uniform flow; per cell the represented number rtol
+    1e-4 and the per-species volume rtol 1e-4 with a floor of 1e-6 of the
+    largest.  Returns the differences as one line."""
+    import torch
+
     floors = {"w": 1e-5, "ph": 1e-3}
-    for name in ("u", "v", "w", "theta_p", "p_p", "mu", "ph", "moist", "chem",
-                 "num_conc", "tke"):
+    worst = {}
+    for name in DYN_FIELDS:
         a, b = getattr(out_gpu.dyn, name), getattr(out_cpu.dyn, name)
         atol = max(floors.get(name, 0.0), 1e-4 * float(b.abs().max()))
         worst[name] = float((a - b).abs().max())
         require(torch.allclose(a, b, rtol=1e-4, atol=atol),
-                f"card vs CPU: dyn.{name} max diff {worst[name]}")
+                f"{tag}: dyn.{name} max diff {worst[name]}")
     num_g, num_c = out_gpu.aero.total_num(), out_cpu.aero.total_num()
     sv_g = torch.sum(out_gpu.aero.vol * out_gpu.aero.num[..., None, :], -1)
     sv_c = torch.sum(out_cpu.aero.vol * out_cpu.aero.num[..., None, :], -1)
     n_rel = float(((num_g - num_c).abs() / num_c.abs().clamp(min=1e-30)).max())
-    v_ok = torch.allclose(sv_g, sv_c, rtol=1e-4, atol=1e-6 * float(sv_c.abs().max()))
-    v_rel = float(((sv_g - sv_c).abs() / sv_c.abs().clamp(min=1e-30)).max())
-    print(f"[card-vs-cpu] 12x12x4, 16/cell: dyn max diffs "
-          + " ".join(f"{k}={v:.2e}" for k, v in worst.items())
-          + f"; per-cell number max rel {n_rel:.2e}; per-cell species volume "
-          f"max rel {v_rel:.2e}; alive {int(out_gpu.aero.n_alive().sum())} vs "
-          f"{int(out_cpu.aero.n_alive().sum())}")
-    require(n_rel <= 1e-4, f"card vs CPU: per-cell number rel {n_rel}")
-    require(v_ok, f"card vs CPU: per-species volume rel {v_rel}")
+    v_floor = 1e-6 * float(sv_c.abs().max())
+    big = sv_c.abs() > v_floor              # the relative rule's entries
+    v_rel = float(((sv_g - sv_c).abs() / sv_c.abs())[big].max())
+    v_abs = float((sv_g - sv_c).abs()[~big].max()) if bool((~big).any()) else 0.0
+    require(n_rel <= 1e-4, f"{tag}: per-cell number rel {n_rel}")
+    require(torch.allclose(sv_g, sv_c, rtol=1e-4, atol=v_floor),
+            f"{tag}: per-species volume rel {v_rel}, below the floor abs {v_abs}")
+    return ("dyn max diffs " + " ".join(f"{k}={v:.2e}" for k, v in worst.items())
+            + f"; per-cell number max rel {n_rel:.2e}; per-cell species volume max "
+            f"rel {v_rel:.2e} (above 1e-6 of the largest), max abs {v_abs:.2e} below "
+            f"that floor of {v_floor:.2e}; alive {int(out_gpu.aero.n_alive().sum())} vs "
+            f"{int(out_cpu.aero.n_alive().sum())}")
+
+
+def phase_card_vs_cpu():
+    from wrf_partmc_tpu_torch.entry import build
+
+    model, state = build(12, 12, 4, n_part=16, cap=48, device="cpu")
+    out_cpu = model(state)
+    out_gpu = model.to("cuda")(state.to("cuda")).to("cpu")
+    print("[card-vs-cpu] 12x12x4, 16/cell: "
+          + compare_card_cpu("card vs CPU", out_gpu, out_cpu))
+
+
+def drive(model, state, n_timed: int):
+    """One warm-up step and ``n_timed`` timed steps, the kernels' counts set
+    to 0 just before and read just after.  Returns (state, warm-up s, timed
+    s, launches, argument shapes)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    state = model(state)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        state = model(state)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return (state, warm, dt, *read_counts())
+
+
+def require_launched(kernels: dict, key: str, launches: dict, path: str):
+    for k, n in launches.items():
+        require(n > 0, f"kernel {k} was not launched on the {path}")
+        kernels[k][key] = n
 
 
 def phase_main_path(kernels: dict, n_timed: int = 6):
     import torch
 
     from wrf_partmc_tpu_torch.entry import build
-    from wrf_partmc_tpu_torch.ops import place, tridiag
 
-    counters = {"thomas_solve": tridiag.thomas_solve,
-                "scatter_rows": place.scatter_rows_cuda,
-                "gather_rows": place.gather_rows_cuda}
     t0 = time.perf_counter()
     model, state = build(40, 40, 10, n_part=1000, cap=1280, device="cuda")
     torch.cuda.synchronize()
     print(f"[main] build 40x40x10, 1000/cell, cap 1280: "
           f"{time.perf_counter() - t0:.3f} s, alive {int(state.aero.n_alive().sum())}")
-    torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    state = model(state)                       # step 0, with coagulation
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    for _ in range(n_timed):                   # steps 1..6; step 6 coagulates
-        state = model(state)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
+    # step 0 coagulates, then steps 1..6, of which step 6 coagulates
+    state, warm, dt, launches, shapes = drive(model, state, n_timed)
     cells = 40 * 40 * 10
     ms = 1e3 * dt / n_timed
     alive = int(state.aero.n_alive().sum())
@@ -250,10 +369,231 @@ def phase_main_path(kernels: dict, n_timed: int = 6):
     require(bool(torch.isfinite(state.aero.num).all()), "num not finite")
     require(tuple(state.aero.num.shape) == (10, 40, 40, 1280), "bad num shape")
     require(alive > 0, "no particle alive")
-    for k, n in launches.items():
-        require(n > 0, f"kernel {k} was not launched on the main path")
-        kernels[k]["launches"] = n
-    return ms
+    require_launched(kernels, "launches", launches, "main path")
+    return shapes
+
+
+def check_rates_on_card():
+    """CBM-Z rate coefficients on the card against the CPU, day and night,
+    rtol 1e-4; the DMS + OH addition rate, whose 1.7e-42 prefactor is a
+    float32 subnormal, against its float64 formula to 5e-4 (the subnormal's
+    11 bits), so a build that flushes subnormals fails here."""
+    import numpy as np
+    import torch
+
+    from wrf_partmc_tpu_torch.models.partmc import cbmz
+
+    rng = np.random.default_rng(0)
+    T = rng.uniform(240.0, 310.0, 64).astype(np.float32)
+    P = rng.uniform(5.0e4, 1.0e5, 64).astype(np.float32)
+    RH = rng.uniform(0.2, 0.95, 64).astype(np.float32)
+    mu = np.where(np.arange(64) % 2 == 0, 0.6, -0.2).astype(np.float32)
+    i_dms = [i for i, f in enumerate(cbmz.build_mechanism().rate_fns)
+             if f is cbmz.K_DMS_OH_ADD][0]
+    k = {dev: cbmz.rate_coefficients(cbmz.build_mechanism(device=dev),
+                                     *(torch.tensor(a, device=dev) for a in (T, P, RH, mu)))
+         .cpu().numpy() for dev in ("cpu", "cuda")}
+    rel = float((np.abs(k["cuda"] - k["cpu"]) / np.maximum(np.abs(k["cpu"]), 1e-38)).max())
+    T64, P64 = T.astype(np.float64), P.astype(np.float64)
+    M = P64 / (cbmz.c.BOLTZMANN * T64) * 1e-6
+    o2 = 0.21 * M
+    k64 = (1.7e-42 * np.exp(7810.0 / T64) * o2
+           / (1.0 + 5.5e-31 * np.exp(7460.0 / T64) * o2)) * M * 1e-9
+    dms_rel = float((np.abs(k["cuda"][:, i_dms] - k64) / k64).max())
+    print(f"[card-vs-cpu-chem] rate coefficients, 64 cells x {k['cpu'].shape[1]} "
+          f"reactions: card vs CPU max rel {rel:.2e}; DMS+OH addition (prefactor "
+          f"1.7e-42) on the card vs float64 max rel {dms_rel:.2e}, min "
+          f"{float(k['cuda'][:, i_dms].min()):.4e}")
+    require(np.allclose(k["cuda"], k["cpu"], rtol=1e-4, atol=0.0),
+            f"rate coefficients: card vs CPU max rel {rel}")
+    require(dms_rel <= 5e-4, f"DMS+OH addition rate on the card: rel {dms_rel} "
+            "against float64 (a flushed subnormal gives 1)")
+
+
+def phase_card_vs_cpu_chem():
+    import dataclasses
+
+    import torch
+
+    from wrf_partmc_tpu_torch.entry import build
+    from wrf_partmc_tpu_torch.utils.at import set_at
+
+    check_rates_on_card()
+    model, state = build(12, 12, 4, n_part=16, cap=48, chem_on=True, chem_dt=60.0,
+                         device="cpu")
+    # 0.2 ppb of DMS, so the subnormal-prefactor channel runs in the step
+    state = dataclasses.replace(state, gas=set_at(
+        state.gas, model.gas_data.spec_by_name("DMS"), 0.2))
+    out_cpu = model(state)                      # step 0 runs the chemistry
+    out_gpu = model.to("cuda")(state.to("cuda")).to("cpu")
+    moved = float((out_cpu.gas - state.gas).abs().max())
+    require(moved > 1e-3, "card vs CPU, chem on: the chemistry did not run")
+    # gases: rtol 1e-4 with a 1e-9 ppb floor, the rule of the CPU parity
+    # test against the JAX package (tests/test_torch_chem_coupled.py)
+    g_rel = float(((out_gpu.gas - out_cpu.gas).abs() / (out_cpu.gas.abs() + 1e-9)).max())
+    require(torch.allclose(out_gpu.gas, out_cpu.gas, rtol=1e-4, atol=1e-9),
+            f"card vs CPU, chem on: gases max rel {g_rel}")
+    line = compare_card_cpu("card vs CPU, chem on", out_gpu, out_cpu)
+    legs = bool(torch.equal(torch.where(out_gpu.aero.alive, out_gpu.aero.hyst_leg, 0),
+                            torch.where(out_cpu.aero.alive, out_cpu.aero.hyst_leg, 0)))
+    print(f"[card-vs-cpu-chem] 12x12x4, 16/cell, 77 gases, DMS 0.2 ppb, chem_dt 60: "
+          f"gases max rel {g_rel:.2e}; {line}; hysteresis legs equal {legs}")
+    require(legs, "card vs CPU, chem on: hysteresis legs differ")
+
+
+def _domain_means(model, state) -> dict:
+    """Domain means of three gases [ppb] and of aerosol nitrate [ug m-3]."""
+    import torch
+
+    from wrf_partmc_tpu_torch.models.coupled.driver import cell_volume_3d
+
+    gd, ad = model.gas_data, model.aero_data
+    out = {g: float(state.gas[..., gd.spec_by_name(g)].mean()) for g in ("O3", "NO2", "HNO3")}
+    s = ad.spec_by_name("NO3")
+    mass = torch.sum(state.aero.vol[..., s, :] * state.aero.num, -1) * ad.density[s]
+    out["NO3_aer_ugm3"] = float((mass / cell_volume_3d(state.dyn, model.grid)).mean() * 1e9)
+    return out
+
+
+def phase_chem_main_path(kernels: dict, n_timed: int = 30):
+    import torch
+
+    from wrf_partmc_tpu_torch.entry import build
+    from wrf_partmc_tpu_torch.utils.tree import tensor_leaves
+
+    t0 = time.perf_counter()
+    model, state = build(40, 40, 10, n_part=100, cap=128, chem_on=True, chem_dt=300.0,
+                         device="cuda")
+    torch.cuda.synchronize()
+    m_chem = round(model.cfg.partmc.partmc_chem_dt / model.cfg.dynamics.dt)
+    require(m_chem == n_timed, f"chem cadence {m_chem} != {n_timed} timed steps")
+    print(f"[chem-main] build 40x40x10, 100/cell, cap 128, 77 gases, chem_dt 300 s: "
+          f"{time.perf_counter() - t0:.3f} s, alive {int(state.aero.n_alive().sum())}, "
+          f"means {json.dumps(_domain_means(model, state))}")
+    # step 0 runs the chemistry macro-step, then steps 1..30, of which
+    # step 30 runs it again
+    state, warm, dt, launches, shapes = drive(model, state, n_timed)
+    cells = 40 * 40 * 10
+    ms = 1e3 * dt / n_timed
+    alive = int(state.aero.n_alive().sum())
+    means = _domain_means(model, state)
+    print(f"[chem-main] warm-up step (chemistry) {1e3 * warm:.3f} ms; {n_timed} timed "
+          f"steps {1e3 * dt:.3f} ms = {ms:.3f} ms/step, {cells * n_timed / dt:.1f} "
+          f"cell-steps/s; alive {alive}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches {launches}; "
+          f"means {json.dumps(means)}")
+    for name, leaf in tensor_leaves(state, "state").items():
+        if leaf.is_floating_point():
+            require(bool(torch.isfinite(leaf).all()), f"chem-on main path: {name} not finite")
+    require(tuple(state.gas.shape) == (10, 40, 40, 77), "bad gas shape")
+    require(alive > 0, "no particle alive")
+    require(all(v == v and v >= 0.0 for v in means.values()), f"bad means {means}")
+    require_launched(kernels, "launches_chem_on", launches, "chem-on main path")
+    return model, state, shapes
+
+
+def phase_chem_split(model, state, reps: int = 3):
+    """The chemistry macro-step alone, at the state the chem-on path left."""
+    import numpy as np
+    import torch
+
+    from wrf_partmc_tpu_torch.models.coupled.driver import make_env, step_time
+    from wrf_partmc_tpu_torch.models.partmc import cbmz, mosaic
+
+    cfg, mech, gd, ad = model.cfg, model.mech, model.gas_data, model.aero_data
+    pc = cfg.partmc
+    env = make_env(state.dyn, model.grid, cfg, state.step)
+    cosz = cbmz.solar_cos_zenith(cfg.domain, step_time(state.step, cfg.dynamics.dt))
+    cosz = cosz.to("cuda")
+    dt_chem = pc.partmc_chem_dt
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    def median_ms(fn):
+        return statistics.median(timed(fn)[1] for _ in range(reps))
+
+    whole = median_ms(lambda: mosaic.mosaic_timestep(
+        mech, state.aero, state.gas, gd, ad, env, dt_chem, cosz,
+        n_sub_gas=pc.n_sub_gas, n_sub_astem=pc.n_sub_astem))
+    gas_c, t_cbmz = timed(lambda: cbmz.cbmz_step(
+        mech, state.gas, env.temp, env.pressure, env.rel_humid, cosz, dt_chem,
+        n_sub=pc.n_sub_gas))
+    # the same CBM-Z step piece by piece, in the slices cbmz_step uses
+    S = state.gas.shape[-1]
+    conc0 = state.gas.reshape(-1, S)
+    T, P, RH = (x.reshape(-1) for x in (env.temp, env.pressure, env.rel_humid))
+    N = conc0.shape[0]
+    h = float(np.float32(dt_chem) / np.float32(pc.n_sub_gas))
+    parts = dict(rate_coefficients=0.0, jacobian=0.0, fast_inv=0.0, substeps=0.0)
+    blocks = []
+    block = cbmz.CELL_BLOCK
+    for s in range(0, N, block):
+        sl = slice(s, min(s + block, N))
+        mu = cosz.expand(sl.stop - sl.start)
+        k, ms = timed(lambda: cbmz.rate_coefficients(mech, T[sl], P[sl], RH[sl], mu))
+        parts["rate_coefficients"] += ms
+        A, ms = timed(lambda: cbmz.ros2_operator(mech, conc0[sl], k, h))
+        parts["jacobian"] += ms
+        a_inv, ms = timed(lambda: cbmz.fast_inv(A))
+        parts["fast_inv"] += ms
+
+        def substeps():
+            c = conc0[sl]
+            for _ in range(pc.n_sub_gas):
+                c = cbmz.ros2_substep_w(mech, c, k, h, a_inv)
+            return c
+        c, ms = timed(substeps)
+        parts["substeps"] += ms
+        blocks.append(c)
+    pieces = torch.cat(blocks).reshape(gas_c.shape)
+    require(torch.allclose(pieces, gas_c, rtol=1e-6, atol=0.0),
+            "chem split: the pieces do not rebuild cbmz_step")
+    (aero_a, gas_a), t_astem = timed(lambda: mosaic.astem_inorganic(
+        state.aero, gas_c, gd, ad, env, dt_chem, n_sub=pc.n_sub_astem))
+    _, t_soa = timed(lambda: mosaic.soa_partition(aero_a, gas_a, gd, ad, env, dt_chem))
+    total = sum(parts.values()) + t_astem + t_soa
+    print(f"[chem-split] mosaic_timestep 40x40x10 x 128 slots, 77 gases, median of {reps}: "
+          f"{whole:.3f} ms; cbmz_step alone {t_cbmz:.3f} ms; synced pieces "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+          + f", astem_inorganic {t_astem:.3f} ms, soa_partition {t_soa:.3f} ms; "
+          f"fast_inv share of the pieces' {total:.3f} ms: {parts['fast_inv'] / total:.3f}")
+
+
+def phase_40class(kernels: dict):
+    import torch
+
+    from wrf_partmc_tpu_torch.entry import build
+
+    t0 = time.perf_counter()
+    model, state = build(40, 40, 10, n_part=1000, cap=1280, n_sources=38, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    # step 0 (coagulation) and step 1
+    state, warm, dt, launches, shapes = drive(model, state, 1)
+    alive = int(state.aero.n_alive().sum())
+    print(f"[40class] 40x40x10, 1000/cell, n_sources=38, n_class {model.cfg.n_class}: "
+          f"build {build_s:.3f} s; step 0 (coagulation) {1e3 * warm:.3f} ms, step 1 "
+          f"{1e3 * dt:.3f} ms; alive {alive}; launches {launches}")
+    require(model.cfg.n_class >= 39, "40-class universe not built")
+    require(bool(torch.isfinite(state.aero.num).all()), "40-class: num not finite")
+    require(bool(torch.isfinite(state.dyn.num_conc).all()), "40-class: num_conc not finite")
+    require(alive > 0, "40-class: no particle alive")
+    require_launched(kernels, "launches_40class", launches, "40-class path")
+    return shapes
+
+
+def _free():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -278,7 +618,18 @@ def main() -> int:
         phase_build()
         phase_kernels(kernels)
         phase_card_vs_cpu()
-        phase_main_path(kernels)
+        shapes = phase_main_path(kernels)
+        _free()
+        phase_path_shapes("main path", kernels, shapes)
+        phase_card_vs_cpu_chem()
+        model, state, shapes = phase_chem_main_path(kernels)
+        phase_chem_split(model, state)
+        del model, state
+        _free()
+        phase_path_shapes("chem-on main path", kernels, shapes)
+        shapes = phase_40class(kernels)
+        _free()
+        phase_path_shapes("40-class path", kernels, shapes)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -78,6 +78,11 @@ def test_multi_step_domain_totals(runs):
     assert t[-1].step == N_STEPS
 
 
-def test_chem_on_is_refused():
-    with pytest.raises(NotImplementedError, match="Chemistry"):
-        build(chem_on=True)
+def test_chem_on_builds_and_steps():
+    """``build(chem_on=True)`` (tests/test_torch_chem_coupled.py holds it
+    against the JAX package): the chemistry macro-step runs at step 0."""
+    model, state = build(chem_on=True)
+    out = model(state)
+    assert model.mech is not None and model.mech.n_spec == out.gas.shape[-1] == 77
+    assert not np.allclose(to_numpy(out).gas, to_numpy(state).gas)
+    assert np.isfinite(to_numpy(out).gas).all() and out.step == 1

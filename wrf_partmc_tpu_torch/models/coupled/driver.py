@@ -2,15 +2,16 @@
 
 Port of the single-device path of ``wrf_partmc_tpu/models/coupled/driver.py``
 (``mesh=None``, ``bdy=None``): partmc_to_wrf -> ARW dycore -> implicit
-vertical diffusion -> partmc_from_wrf -> emission -> coagulation (every
-``partmc_chem_dt``) -> stochastic transport -> surface deposition ->
-rebalance.
+vertical diffusion -> partmc_from_wrf -> emission -> the chemistry
+macro-step every ``partmc_chem_dt`` (nucleation, coagulation, MOSAIC or
+simple chemistry, condensation) -> stochastic transport -> surface
+deposition -> rebalance.
 
 :class:`CoupledModel` holds the static tables (grid metrics, ``AeroData``,
-``Scenario``, ``exch_h``) as registered buffers, so ``.to(device)`` moves
-them all; ``forward(state)`` returns the next :class:`CoupledState`.  The
-step counter is a host int, so the reference's ``lax.cond`` on the chemistry
-cadence is a Python ``if``.
+``GasData``, the CBM-Z ``Mechanism``, ``Scenario``, ``exch_h``) as
+registered buffers, so ``.to(device)`` moves them all; ``forward(state)``
+returns the next :class:`CoupledState`.  The step counter is a host int, so
+the reference's ``lax.cond`` on the chemistry cadence is a Python ``if``.
 
 Units at the coupling surface: chem tracers carry ppm, gas states ppb;
 NUM_CONC class tracers carry number per kg of dry air, particle
@@ -37,11 +38,16 @@ from ..dycore.solve import solve_step
 from ..dycore.state import DycoreState, base_profiles, temperature, total_pressure
 from ..partmc.aero_data import AeroData, particle_mass, particle_volume
 from ..partmc.aero_state import AeroState, rebalance, zero_state
+from ..partmc.cbmz import Mechanism, build_mechanism, solar_cos_zenith
 from ..partmc.coag import coag_step
+from ..partmc.condense import condense_dynamic, equilib_water_hyst
 from ..partmc.deposition import aerodynamic_resistance, deposition_velocity
 from ..partmc.env_state import EnvState
 from ..partmc.gas_data import GasData
+from ..partmc.mosaic import mosaic_timestep
+from ..partmc.nucleate import nucleate_step
 from ..partmc.scenario import Scenario, update_aero_state, update_gas_state
+from ..partmc.simple_chem import chem_step
 from ..physics.thermo import relative_humidity
 from .transport import transport_step
 
@@ -124,11 +130,42 @@ def emission_step(aero: AeroState, gas, env: EnvState, aero_data: AeroData,
     return aero, gas
 
 
-def microphysics_step(aero: AeroState, env: EnvState, aero_data: AeroData,
-                      cfg: Config, key) -> AeroState:
-    """The chem-macro-step work with chemistry off: coagulation."""
+def uses_cbmz(cfg: Config, gas_data: GasData) -> bool:
+    """Whether MOSAIC runs the full CBM-Z mechanism (else the simple
+    stand-in), as the reference decides it."""
+    return (cfg.partmc.do_mosaic and cfg.partmc.chem_mech != "simple"
+            and gas_data.n_spec >= 77)
+
+
+def microphysics_step(aero: AeroState, gas, env: EnvState, aero_data: AeroData,
+                      gas_data: GasData, cfg: Config, t: float, key,
+                      mech: Mechanism | None = None):
+    """The chem-macro-step work, in the reference's order: nucleation,
+    coagulation, MOSAIC (or the simple chemistry), condensation (equilibrium
+    water with hysteresis, or the dynamic ODE).  ``mech`` is the CBM-Z
+    mechanism when :func:`uses_cbmz`.  Returns (aero, gas)."""
+    pc = cfg.partmc
+    dt_chem = pc.partmc_chem_dt
     k_coag, _k_scn, _k_ss = rng.split(key, 3)
-    return coag_step(aero, aero_data, env, cfg.partmc.partmc_chem_dt, k_coag)
+    if pc.do_nucleation:
+        aero, gas = nucleate_step(aero, gas, gas_data, aero_data, env.temp,
+                                  env.pressure, env.cell_volume, dt_chem)
+    if pc.do_coagulation:
+        aero = coag_step(aero, aero_data, env, dt_chem, k_coag)
+    if pc.do_mosaic:
+        if uses_cbmz(cfg, gas_data):
+            cosz = solar_cos_zenith(cfg.domain, t).to(gas.device)
+            aero, gas = mosaic_timestep(mech, aero, gas, gas_data, aero_data, env,
+                                        dt_chem, cosz, n_sub_gas=pc.n_sub_gas,
+                                        n_sub_astem=pc.n_sub_astem)
+        else:
+            aero, gas = chem_step(aero, gas, gas_data, aero_data, env, dt_chem)
+    if pc.do_condensation:
+        if pc.condense_mode == "dynamic":
+            aero, _s = condense_dynamic(aero, aero_data, env, dt_chem)
+        else:
+            aero = equilib_water_hyst(aero, aero_data, env)
+    return aero, gas
 
 
 def surface_deposition(aero: AeroState, env: EnvState, aero_data: AeroData,
@@ -156,9 +193,6 @@ def check_supported(cfg: Config) -> None:
     """Refuse configurations whose code paths are not ported yet."""
     d, p, b = cfg.dynamics, cfg.partmc, cfg.boundary
     off = {
-        "partmc.do_mosaic (chemistry; ROADMAP: chemistry slice)": p.do_mosaic,
-        "partmc.do_condensation": p.do_condensation,
-        "partmc.do_nucleation": p.do_nucleation,
         "partmc.seasalt_param": p.seasalt_param,
         "partmc.do_optical": p.do_optical,
         "partmc.record_removals": p.record_removals,
@@ -177,7 +211,8 @@ def check_supported(cfg: Config) -> None:
 
 
 def coupled_step(cs: CoupledState, grid: Grid, cfg: Config,
-                 aero_data: AeroData, scn: Scenario, exch_h, base_seed_key):
+                 aero_data: AeroData, gas_data: GasData, scn: Scenario, exch_h,
+                 base_seed_key, mech: Mechanism | None = None):
     """One full coupled timestep.  Returns (new_state, transport diag)."""
     pc = cfg.partmc
     dt = cfg.dynamics.dt
@@ -208,9 +243,10 @@ def coupled_step(cs: CoupledState, grid: Grid, cfg: Config,
     else:
         gas = update_gas_state(scn, gas, t, dt)
 
-    if pc.do_coagulation and cs.step % m_chem == 0:
-        aero = microphysics_step(aero, env, aero_data, cfg,
-                                 keys[rng.STREAM_COAG])
+    if ((pc.do_coagulation or pc.do_condensation or pc.do_nucleation
+         or pc.do_mosaic) and cs.step % m_chem == 0):
+        aero, gas = microphysics_step(aero, gas, env, aero_data, gas_data, cfg, t,
+                                      keys[rng.STREAM_COAG], mech=mech)
 
     tdiag = {}
     dz3 = None
@@ -242,18 +278,23 @@ def init_coupled(cfg: Config, grid: Grid, aero_data: AeroData,
 
 class CoupledModel(torch.nn.Module):
     """The coupled step as a module.  Static tables are registered buffers
-    (non-persistent): grid metrics, ``AeroData``, ``Scenario`` and
-    ``exch_h``.  ``forward(state)`` returns the next state; the transport
-    counters of the last step are kept in ``last_diag``."""
+    (non-persistent): grid metrics, ``AeroData``, ``GasData``, ``Scenario``,
+    ``exch_h`` and, when MOSAIC runs CBM-Z, the ``Mechanism`` tables.
+    ``forward(state)`` returns the next state; the transport counters of the
+    last step are kept in ``last_diag``."""
 
     def __init__(self, cfg: Config, grid: Grid, aero_data: AeroData,
-                 scn: Scenario, exch_h, seed: int = 0):
+                 gas_data: GasData, scn: Scenario, exch_h, seed: int = 0):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         self.base_key = rng.base_key(seed)
         self._templates = {}
-        for name, obj in (("grid", grid), ("aero_data", aero_data), ("scn", scn)):
+        tables = [("grid", grid), ("aero_data", aero_data), ("gas_data", gas_data),
+                  ("scn", scn)]
+        if uses_cbmz(cfg, gas_data):
+            tables.append(("mech", build_mechanism(device=gas_data.molec_weight.device)))
+        for name, obj in tables:
             self._templates[name] = obj
             for buf, t in tensor_leaves(obj, name).items():
                 self.register_buffer(buf, t, persistent=False)
@@ -272,11 +313,19 @@ class CoupledModel(torch.nn.Module):
         return self._table("aero_data")
 
     @property
+    def gas_data(self) -> GasData:
+        return self._table("gas_data")
+
+    @property
     def scn(self) -> Scenario:
         return self._table("scn")
 
+    @property
+    def mech(self) -> Mechanism | None:
+        return self._table("mech") if "mech" in self._templates else None
+
     def forward(self, state: CoupledState) -> CoupledState:
         out, self.last_diag = coupled_step(state, self.grid, self.cfg,
-                                           self.aero_data, self.scn,
-                                           self.exch_h, self.base_key)
+                                           self.aero_data, self.gas_data, self.scn,
+                                           self.exch_h, self.base_key, mech=self.mech)
         return out

@@ -53,6 +53,20 @@ class AeroData:
     def n_spec(self) -> int:
         return len(self.names)
 
+    @property
+    def i_water(self) -> int:
+        return self.names.index("H2O")
+
+    def spec_by_name(self, name: str) -> int:
+        return self.names.index(name)
+
+    @property
+    def dry_mask(self) -> torch.Tensor:
+        """[S] 1.0 for every species except water (for dry diameter/mass)."""
+        m = torch.ones(self.n_spec, dtype=torch.float32, device=self.density.device)
+        m[self.i_water] = 0.0
+        return m
+
 
 def make_aero_data(species=DEFAULT_SPECIES, device="cpu") -> AeroData:
     names = tuple(s[0] for s in species)
@@ -62,13 +76,18 @@ def make_aero_data(species=DEFAULT_SPECIES, device="cpu") -> AeroData:
                     kappa=f32(4), names=names)
 
 
-def particle_volume(vol):
+def particle_volume(vol, dry: bool = False, aero_data: AeroData | None = None):
     """Total per-particle volume [..., P] from [..., S, P] composition."""
+    if dry:
+        return torch.sum(vol * aero_data.dry_mask[:, None], dim=-2)
     return torch.sum(vol, dim=-2)
 
 
-def particle_mass(vol, aero_data: AeroData):
-    return torch.sum(vol * aero_data.density[:, None], dim=-2)
+def particle_mass(vol, aero_data: AeroData, dry: bool = False):
+    rho = aero_data.density[:, None]
+    if dry:
+        rho = rho * aero_data.dry_mask[:, None]
+    return torch.sum(vol * rho, dim=-2)
 
 
 def vol_to_diam(v):
@@ -78,3 +97,20 @@ def vol_to_diam(v):
 
 def diam_to_vol(d):
     return (torch.pi / 6.0) * (d * d * d)
+
+
+def particle_density(vol, aero_data: AeroData):
+    """Mean density of each particle [..., P] (a dead slot's 0/0 is NaN, as
+    in the reference, whose 1e-300 floor is 0 in float32)."""
+    v = particle_volume(vol)
+    m = particle_mass(vol, aero_data)
+    return m / torch.clamp(v, min=0.0)
+
+
+def solute_kappa(vol, aero_data: AeroData):
+    """Volume-weighted mean hygroscopicity over dry species [..., P]
+    (kappa-Koehler mixing rule, Petters & Kreidenweis 2007)."""
+    dry = aero_data.dry_mask[:, None]
+    vd = torch.sum(vol * dry, dim=-2)
+    kv = torch.sum(vol * dry * aero_data.kappa[:, None], dim=-2)
+    return kv / torch.clamp(vd, min=0.0)

@@ -68,6 +68,9 @@ class AeroState:
         return torch.stack([torch.sum(torch.where(self.w_class == c, self.num, 0.0), dim=-1)
                             for c in range(n_class)], dim=-1)
 
+    def dry_diameter(self, aero_data: AeroData) -> torch.Tensor:
+        return vol_to_diam(particle_volume(self.vol, dry=True, aero_data=aero_data))
+
     def wet_diameter(self) -> torch.Tensor:
         return vol_to_diam(particle_volume(self.vol))
 

@@ -30,3 +30,9 @@ class EnvState:
         return (2.0 * c.AIR_DYN_VISC
                 / (self.pressure * torch.sqrt(8.0 * c.AIR_MOLEC_WEIGHT
                                               / (torch.pi * c.UNIV_GAS_CONST * self.temp))))
+
+    @property
+    def kelvin_A(self) -> torch.Tensor:
+        """Kelvin coefficient A [m] in exp(A/D) of the Koehler equation."""
+        return (4.0 * c.WATER_MOLEC_WEIGHT * c.WATER_SURF_ENERGY
+                / (c.UNIV_GAS_CONST * self.temp * c.WATER_DENSITY))

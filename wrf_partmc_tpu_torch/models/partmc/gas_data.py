@@ -32,8 +32,18 @@ class GasData:
     def n_spec(self) -> int:
         return len(self.names)
 
+    def spec_by_name(self, name: str) -> int:
+        return self.names.index(name)
+
 
 def make_gas_data(gases=DEFAULT_GASES, device="cpu") -> GasData:
     return GasData(molec_weight=torch.as_tensor(
         np.asarray([g[1] for g in gases], np.float32), device=device),
         names=tuple(g[0] for g in gases))
+
+
+def make_gas_data_cbmz(device="cpu") -> GasData:
+    """The full 77-species CBM-Z registry of the chem_opt==777 package
+    (``Registry/registry.chem:3986``), for ``models.partmc.cbmz``."""
+    from .cbmz import CBMZ_GASES
+    return make_gas_data(CBMZ_GASES, device=device)

@@ -71,6 +71,7 @@ def scatter_rows_cuda(x, dst, L2: int):
         _cuda.stream_ptr(x.device))
     _cuda.check(err, "scatter_rows")
     scatter_rows_cuda.launches += 1
+    scatter_rows_cuda.shapes.add((tuple(x.shape), L2))
     return out
 
 
@@ -85,11 +86,16 @@ def gather_rows_cuda(x, src):
         _cuda.stream_ptr(x.device))
     _cuda.check(err, "gather_rows")
     gather_rows_cuda.launches += 1
+    gather_rows_cuda.shapes.add((tuple(x.shape), L2))
     return out
 
 
+# launches: kernel launches; shapes: (payload shape, output slots) of each,
+# so a check can repeat them.  Both are read and reset by their caller.
 scatter_rows_cuda.launches = 0
+scatter_rows_cuda.shapes = set()
 gather_rows_cuda.launches = 0
+gather_rows_cuda.shapes = set()
 
 
 def scatter_rows(x, dst, L2: int):
