@@ -24,11 +24,18 @@ Phases, each printed on its own line and each fatal on failure:
 8. the chemistry macro-step alone at full width, split into CBM-Z (rate
    coefficients, Jacobian, fast_inv, substeps), ASTEM and SOA;
 9. the 40-class universe: two steps at 40x40x10, 1000 per cell,
-   ``n_sources=38``, chemistry off, with every kernel's launch count.
+   ``n_sources=38``, chemistry off, with every kernel's launch count;
+10. card against CPU, the CARES shape: one step at 12x10x8 (open
+    boundaries, MYJ, Morrison, Grell, correlated-k radiation with the
+    aerosol optics, Noah, chemistry on) on ``cuda`` and on ``cpu``;
+11. the CARES path: 72x72x24, 100 particles per cell (capacity 128),
+    dt 30 s, chem_dt 300 s: a warm-up step (step 0, chemistry) and 20
+    timed steps (two chemistry macro-steps), with every kernel's launch
+    count, overall and per caller.
 
-After each of the paths 5, 7 and 9, every kernel is held against its plain
-version at each argument shape that path launched it with and no earlier
-check held.
+After each of the paths 5, 7, 9 and 11, every kernel is held against its
+plain version at each argument shape that path launched it with and no
+earlier check held.
 
 The line before the last is the kernel summary as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -587,6 +594,122 @@ def phase_40class(kernels: dict):
     return shapes
 
 
+CARES_CELLS = 72 * 72 * 24
+
+
+def phase_card_vs_cpu_cares():
+    """One CARES-shaped step (MYJ, Morrison, Grell, correlated-k radiation
+    with the aerosol optics, Noah, open boundaries, chemistry on) at
+    12x10x8 on the card against the same step on the CPU: the dycore and
+    particles by ``compare_card_cpu``, gases as phase 6, the Noah skin and
+    soil temperatures and the MYJ q2 by the JAX parity rule of
+    tests/test_torch_cares_coupled.py (rtol 1e-5), q2 with an absolute
+    floor of 1e-6, 5e-5 of its minimum Q2_MIN = 0.02."""
+    import torch
+
+    from wrf_partmc_tpu_torch.cares import build_cares_shape
+
+    model, state = build_cares_shape(12, 10, 8, n_part=16, cap=32, chem_on=True)
+    out_cpu = model(state)                      # step 0 runs the chemistry
+    out_gpu = model.to("cuda")(state.to("cuda")).to("cpu")
+    g_rel = float(((out_gpu.gas - out_cpu.gas).abs() / (out_cpu.gas.abs() + 1e-9)).max())
+    require(torch.allclose(out_gpu.gas, out_cpu.gas, rtol=1e-4, atol=1e-9),
+            f"card vs CPU, CARES: gases max rel {g_rel}")
+    line = compare_card_cpu("card vs CPU, CARES", out_gpu, out_cpu)
+    extra = {}
+    for name, a, b, atol in (("land.tsk", out_gpu.land.tsk, out_cpu.land.tsk, 0.0),
+                             ("land.t_soil", out_gpu.land.t_soil, out_cpu.land.t_soil, 0.0),
+                             ("pbl_q2", out_gpu.pbl_q2, out_cpu.pbl_q2, 1e-6)):
+        extra[name] = float((a - b).abs().max())
+        require(torch.allclose(a, b, rtol=1e-5, atol=atol),
+                f"card vs CPU, CARES: {name} max diff {extra[name]}")
+    require(float((out_cpu.land.tsk - state.land.tsk).abs().max()) > 1e-3,
+            "card vs CPU, CARES: the LSM did not run")
+    print(f"[card-vs-cpu-cares] 12x10x8, 16/cell, 77 gases: gases max rel {g_rel:.2e}; "
+          + " ".join(f"{k} max diff {v:.2e};" for k, v in extra.items()) + f" {line}")
+
+
+def phase_cares_path(kernels: dict, n_timed: int = 20):
+    """The CARES shape at 72x72x24, 100 particles per cell (capacity 128),
+    chem_dt 300 s at dt 30 s: a warm-up step (step 0, chemistry) and
+    ``n_timed`` timed steps (two chemistry macro-steps, past step 16 where
+    the reference went NaN before its wrfbdy forced mu and ph)."""
+    import torch
+
+    from wrf_partmc_tpu_torch.cares import build_cares_shape
+
+    t0 = time.perf_counter()
+    model, state = build_cares_shape(72, 72, 24, n_part=100, cap=128, dt=30.0,
+                                     chem_on=True, device="cuda")
+    torch.cuda.synchronize()
+    m_chem = round(model.cfg.partmc.partmc_chem_dt / model.cfg.dynamics.dt)
+    require(n_timed % m_chem == 0, f"{n_timed} timed steps hold no whole chem cadence")
+    print(f"[cares] build 72x72x24, 100/cell, cap 128, 77 gases, chem_dt 300 s, dt 30 s: "
+          f"{time.perf_counter() - t0:.3f} s, alive {int(state.aero.n_alive().sum())}")
+    by_caller = {}
+    restore = attribute_launches(by_caller)
+    state, warm, dt, launches, shapes = drive(model, state, n_timed)
+    restore()
+    ms = 1e3 * dt / n_timed
+    alive = int(state.aero.n_alive().sum())
+    means = _domain_means(model, state)
+    mu_max = float(state.dyn.mu.abs().max())
+    print(f"[cares] warm-up step (chemistry) {1e3 * warm:.3f} ms; {n_timed} timed steps "
+          f"{1e3 * dt:.3f} ms = {ms:.3f} ms/step, {CARES_CELLS * n_timed / dt:.1f} "
+          f"cell-steps/s; alive {alive}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches {launches}; "
+          f"max |mu'| {mu_max:.3f} Pa; means {json.dumps(means)}")
+    for name, x in (("theta_p", state.dyn.theta_p), ("mu", state.dyn.mu),
+                    ("moist", state.dyn.moist), ("gas", state.gas),
+                    ("aero.num", state.aero.num), ("land.tsk", state.land.tsk),
+                    ("pbl_q2", state.pbl_q2)):
+        require(bool(torch.isfinite(x).all()), f"CARES path: {name} not finite")
+    require(mu_max < 3000.0, f"CARES path: surface-pressure perturbation {mu_max} Pa")
+    require(state.step == n_timed + 1, "CARES path: step count")
+    require(alive > 0, "CARES path: no particle alive")
+    require(all(v == v and v >= 0.0 for v in means.values()), f"bad means {means}")
+    require_launched(kernels, "launches_cares", launches, "CARES path")
+    print(f"[cares] kernel launches by caller: {json.dumps(by_caller)}")
+    for caller, n in by_caller.items():
+        require(n > 0, f"CARES path: no kernel launch from {caller}")
+    return shapes
+
+
+def attribute_launches(by_caller: dict):
+    """Count, per caller, the kernel launches made inside the calls each of
+    these modules makes to the kernels' dispatchers: K1 from the MYJ q2
+    column and the Noah soil column, K2 and K3 from the transport rebucket,
+    K3 from the coagulation pairing.  Returns a function that restores the
+    modules."""
+    from wrf_partmc_tpu_torch.models.coupled import transport
+    from wrf_partmc_tpu_torch.models.partmc import coag
+    from wrf_partmc_tpu_torch.models.physics import lsm, myj
+
+    fns = _kernel_fns()
+    sites = ((myj, "tridiag_solve", "thomas_solve", "K1 in MYJ"),
+             (lsm, "tridiag_solve", "thomas_solve", "K1 in Noah"),
+             (transport, "scatter_rows", "scatter_rows", "K2 in the rebucket"),
+             (transport, "gather_rows", "gather_rows", "K3 in the rebucket"),
+             (coag, "gather_rows", "gather_rows", "K3 in coagulation"))
+    saved = []
+    for mod, attr, kernel, caller in sites:
+        inner = getattr(mod, attr)
+        by_caller[caller] = 0
+
+        def counted(*args, _inner=inner, _fn=fns[kernel], _caller=caller):
+            before = _fn.launches
+            out = _inner(*args)
+            by_caller[_caller] += _fn.launches - before
+            return out
+        saved.append((mod, attr, inner))
+        setattr(mod, attr, counted)
+
+    def restore():
+        for mod, attr, inner in saved:
+            setattr(mod, attr, inner)
+    return restore
+
+
 def _free():
     import gc
 
@@ -630,6 +753,10 @@ def main() -> int:
         shapes = phase_40class(kernels)
         _free()
         phase_path_shapes("40-class path", kernels, shapes)
+        phase_card_vs_cpu_cares()
+        shapes = phase_cares_path(kernels)
+        _free()
+        phase_path_shapes("CARES path", kernels, shapes)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

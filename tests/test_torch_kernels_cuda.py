@@ -40,7 +40,7 @@ def test_thomas_kernel_matches_plain(cuda, cshape, bshape):
 
 
 @pytest.mark.parametrize("B,CH,L1,L2", [(64, 33, 1280, 1120), (64, 33, 400, 400),
-                                        (7, 5, 48, 128)])
+                                        (7, 5, 48, 128), (70000, 3, 40, 40)])
 def test_scatter_kernel_bit_exact(cuda, B, CH, L1, L2):
     g = torch.Generator(device=cuda).manual_seed(1)
     x = torch.randn((B, CH, L1), generator=g, device=cuda)
@@ -53,7 +53,7 @@ def test_scatter_kernel_bit_exact(cuda, B, CH, L1, L2):
 
 
 @pytest.mark.parametrize("B,CH,L1,L2", [(64, 33, 400, 1280), (64, 33, 1280, 1280),
-                                        (7, 5, 48, 16)])
+                                        (7, 5, 48, 16), (70000, 3, 40, 40)])
 def test_gather_kernel_bit_exact(cuda, B, CH, L1, L2):
     g = torch.Generator(device=cuda).manual_seed(2)
     x = torch.randn((B, CH, L1), generator=g, device=cuda)

@@ -2,7 +2,8 @@
 
 ``from_numpy`` turns the JAX package's dataclasses (``CoupledState``,
 ``DycoreState``, ``AeroState``, ``Grid``, ``AeroData``, ``Scenario``,
-``AeroDist``, ``OutflowProbs``, ``EnvState``, ``GasData``, ...) into the port's
+``AeroDist``, ``OutflowProbs``, ``EnvState``, ``GasData``, ``NoahState``,
+``LandState``, ``BdyData``, ``BulkOptics``, ...) into the port's
 counterparts, matching classes by name and fields by name.  The input is
 any object with the JAX field names holding numpy arrays (for example
 ``jax.tree.map(np.asarray, state)``); nothing here imports jax.
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from .grid import Grid
+from .models.coupled.bdy import BdyData
 from .models.coupled.driver import CoupledState
 from .models.dycore.solve import StepDiag
 from .models.dycore.state import DycoreState
@@ -25,13 +27,16 @@ from .models.partmc.aero_state import AeroState
 from .models.partmc.dist import AeroDist
 from .models.partmc.env_state import EnvState
 from .models.partmc.gas_data import GasData
+from .models.partmc.optics import BulkOptics
 from .models.partmc.scenario import Scenario
+from .models.physics.lsm import LandState, NoahState
 from .ops.advection import OutflowProbs
 from .utils.tree import tree_map
 
 _CLASSES = {cls.__name__: cls for cls in (
     CoupledState, DycoreState, AeroState, Grid, AeroData, AeroDist, EnvState,
-    GasData, Scenario, OutflowProbs, StepDiag)}
+    GasData, Scenario, OutflowProbs, StepDiag, NoahState, LandState, BdyData,
+    BulkOptics)}
 
 _NARROW = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32}
 _KEEP = (np.dtype(np.float32), np.dtype(np.int32), np.dtype(np.bool_))

@@ -9,10 +9,14 @@
 // exact to the bit.
 //
 // Bound: device memory, one read and one write of every moved float (plus
-// the int32 index row).  Design: blockIdx.y is the batch (cell), threads
-// run along the slot axis, and each thread loops over the CH channels.  For
-// the scatter the reads x[b,c,i] of a warp are coalesced and the writes go
-// to data-dependent slots of the same cell row (a few KB, L2 resident); for
+// the int32 index row).  Design: a 1-D grid of nblk blocks per batch row
+// (cell), cell-major, so the slot blocks of one cell run together and a
+// grid holds up to 2^31 - 1 blocks (a 2-D grid with the cell on y stops at
+// 65,535 cells; with the cell on x the blocks of a cell run far apart and
+// the scatter's partial-sector writes to its row miss L2).  Threads run
+// along the slot axis, and each thread loops over the CH channels.  For the
+// scatter the reads x[b,c,i] of a warp are coalesced and the writes go to
+// data-dependent slots of the same cell row (a few KB, L2 resident); for
 // the gather the writes are coalesced and the reads land inside one cell's
 // row.  The scatter writes into an output the caller zeroed; a dst of -1 (or
 // out of range) drops the row, a src of -1 (or out of range) writes zeros.
@@ -24,9 +28,9 @@ namespace {
 __global__ void scatter_rows_kernel(const float* __restrict__ x,
                                     const int* __restrict__ dst,
                                     float* __restrict__ out, int ch, int l1,
-                                    int l2) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const long long bb = blockIdx.y;
+                                    int l2, int nblk) {
+  const long long bb = blockIdx.x / nblk;
+  const int i = (blockIdx.x % nblk) * blockDim.x + threadIdx.x;
   if (i >= l1) return;
   const int o = dst[bb * l1 + i];
   if (o < 0 || o >= l2) return;
@@ -38,9 +42,9 @@ __global__ void scatter_rows_kernel(const float* __restrict__ x,
 __global__ void gather_rows_kernel(const float* __restrict__ x,
                                    const int* __restrict__ src,
                                    float* __restrict__ out, int ch, int l1,
-                                   int l2) {
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  const long long bb = blockIdx.y;
+                                   int l2, int nblk) {
+  const long long bb = blockIdx.x / nblk;
+  const int o = (blockIdx.x % nblk) * blockDim.x + threadIdx.x;
   if (o >= l2) return;
   const int s = src[bb * l2 + o];
   float* orow = out + bb * (long long)ch * l2 + o;
@@ -59,17 +63,17 @@ constexpr int kThreads = 128;
 extern "C" int wpt_scatter_rows_f32(const float* x, const int* dst, float* out,
                                     long long b, int ch, int l1, int l2,
                                     void* stream) {
-  dim3 grid((l1 + kThreads - 1) / kThreads, (unsigned)b);
-  scatter_rows_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      x, dst, out, ch, l1, l2);
+  const int nblk = (l1 + kThreads - 1) / kThreads;
+  scatter_rows_kernel<<<(unsigned)(b * nblk), kThreads, 0,
+                        (cudaStream_t)stream>>>(x, dst, out, ch, l1, l2, nblk);
   return (int)cudaGetLastError();
 }
 
 extern "C" int wpt_gather_rows_f32(const float* x, const int* src, float* out,
                                    long long b, int ch, int l1, int l2,
                                    void* stream) {
-  dim3 grid((l2 + kThreads - 1) / kThreads, (unsigned)b);
-  gather_rows_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      x, src, out, ch, l1, l2);
+  const int nblk = (l2 + kThreads - 1) / kThreads;
+  gather_rows_kernel<<<(unsigned)(b * nblk), kThreads, 0,
+                       (cudaStream_t)stream>>>(x, src, out, ch, l1, l2, nblk);
   return (int)cudaGetLastError();
 }

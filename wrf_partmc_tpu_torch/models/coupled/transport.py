@@ -4,8 +4,8 @@ Port of the single-device path of
 ``wrf_partmc_tpu/models/coupled/transport.py``: per-face horizontal
 probabilities (advective outflow + eddy diffusion), the per-column vertical
 operator R = B^N A, the preweight acceptance, the per-particle move draw,
-and the rebucket that moves movers into free slots of their destination
-cells.
+the rebucket that moves movers into free slots of their destination
+cells, and the open-boundary outflow discard.
 
 The rebucket keeps the reference's slot layout exactly: within-cell ranks of
 each destination class are a per-class exclusive cumsum (the reference's bf16
@@ -27,25 +27,29 @@ from ...ops.advection import OutflowProbs
 from ...ops.place import gather_rows, scatter_rows
 from ...ops.stencil import shift
 from ...utils import rng
+from ...utils.at import set_at
 from ..partmc.aero_state import AeroState, payload_channel_list, unpack_payload
 
 
-def horizontal_diffusion_probs(xkhh, grid: Grid, dt, rho3):
+def horizontal_diffusion_probs(xkhh, grid: Grid, dt, rho3, cfg: Config):
     """Per-face horizontal eddy-diffusion move probabilities
-    (pxm, pxp, pym, pyp), each [nz, ny, nx], from the actual density rho3
-    (periodic lateral boundaries)."""
+    (pxm, pxp, pym, pyp), each [nz, ny, nx], from the actual density rho3.
+    Face K/rho averages are wrapped on periodic axes and clamped on open
+    ones."""
     msq = grid.msft * grid.msft
+    bc_x = "periodic" if cfg.boundary.periodic_x else "clamp"
+    bc_y = "periodic" if cfg.boundary.periodic_y else "clamp"
 
-    def face(s, axis, rdx2):
-        k_f = 0.5 * (xkhh + shift(xkhh, s, axis))
-        r_f = 0.5 * (rho3 + shift(rho3, s, axis))
+    def face(s, axis, rdx2, bc):
+        k_f = 0.5 * (xkhh + shift(xkhh, s, axis, bc))
+        r_f = 0.5 * (rho3 + shift(rho3, s, axis, bc))
         return torch.clamp(k_f * dt * msq * rdx2 * r_f
                            / torch.clamp(rho3, min=1e-10), 0.0, 0.2)
 
     rdx2 = grid.rdx * grid.rdx
     rdy2 = grid.rdy * grid.rdy
-    return (face(-1, 2, rdx2), face(1, 2, rdx2),
-            face(-1, 1, rdy2), face(1, 1, rdy2))
+    return (face(-1, 2, rdx2, bc_x), face(1, 2, rdx2, bc_x),
+            face(-1, 1, rdy2, bc_y), face(1, 1, rdy2, bc_y))
 
 
 def vertical_operator(probs: OutflowProbs, exch_h, grid: Grid, dt, rho3, dz3,
@@ -118,10 +122,11 @@ def _count_by_class(mask, w_class, n_class: int):
                         for c in range(n_class)])
 
 
-def preweight_acceptance(aero: AeroState, ph, R):
+def preweight_acceptance(aero: AeroState, ph, R, cfg: Config):
     """Pre-sampling acceptance [nz, ny, nx] in [1/8, 1] that bounds the
     expected arrivals at each cell by its free capacity (the reference's
-    ``trans_aero_preweight``; periodic lateral boundaries)."""
+    ``trans_aero_preweight``).  On an open axis nothing arrives from
+    outside the domain."""
     pxm, pxp, pym, pyp = ph
     n_cf = _count_by_class(aero.alive, aero.w_class, ph[0].shape[0])
 
@@ -129,6 +134,12 @@ def preweight_acceptance(aero: AeroState, ph, R):
     arr_xp = torch.roll(pxp * n_cf, 1, dims=-1)
     arr_ym = torch.roll(pym * n_cf, -1, dims=-2)
     arr_yp = torch.roll(pyp * n_cf, 1, dims=-2)
+    if not cfg.boundary.periodic_x:
+        arr_xm = set_at(arr_xm, -1, 0.0, dim=-1)
+        arr_xp = set_at(arr_xp, 0, 0.0, dim=-1)
+    if not cfg.boundary.periodic_y:
+        arr_ym = set_at(arr_ym, -1, 0.0, dim=-2)
+        arr_yp = set_at(arr_yp, 0, 0.0, dim=-2)
 
     stay_h = torch.clamp(1.0 - (pxm + pxp + pym + pyp), 0.0, 1.0)
     n_nh = stay_h * n_cf                                       # [C,nz,ny,nx]
@@ -177,6 +188,20 @@ def sample_moves(aero: AeroState, ph, R, key):
     return dj, di, torch.clamp(dest, 0, nz - 1), horizontal
 
 
+def open_boundary_drop(dj, di, horizontal, cfg: Config):
+    """[nz, ny, nx, P] mask of particles sampled across an open lateral
+    boundary (the reference's outflow discard)."""
+    _, ny, nx, _ = dj.shape
+    drop = torch.zeros(dj.shape, dtype=torch.bool, device=dj.device)
+    if not cfg.boundary.periodic_x:
+        gi = torch.arange(nx, device=dj.device).reshape(1, 1, nx, 1) + di
+        drop = drop | (horizontal & ((gi < 0) | (gi >= nx)))
+    if not cfg.boundary.periodic_y:
+        gj = torch.arange(ny, device=dj.device).reshape(1, ny, 1, 1) + dj
+        drop = drop | (horizontal & ((gj < 0) | (gj >= ny)))
+    return drop
+
+
 def _caps(cfg: Config, P: int):
     """Per-(source-cell, destination-class) mover caps (vertical, horizontal).
     Kept exactly: where they saturate they change the results."""
@@ -190,7 +215,9 @@ def _reorder_minis(minis, nz, nyl, nxl, ch, Av, Ah):
     buffers [C, ch, Av + 4 Ah].  Vertical ranks are column-global, so each
     (dest level, rank) slot is claimed by at most one source cell and the
     column arrival buffer is the sum over source levels; horizontal movers
-    shift one column over (periodic)."""
+    shift one column over.  The shift wraps, which is right on a periodic
+    axis and harmless on an open one: movers across an open edge were
+    dropped before, so the wrapped rows are empty."""
     C = nz * nyl * nxl
     F1 = nz * Av + 4 * Ah
     m5 = minis.reshape(nz, nyl, nxl, ch, F1)
@@ -205,9 +232,11 @@ def _reorder_minis(minis, nz, nyl, nxl, ch, Av, Ah):
     return arr.reshape(C, ch, Av + 4 * Ah)
 
 
-def rebucket(aero: AeroState, dest_k, dj, di, horizontal, acc, cfg: Config, key):
-    """Move particles to their sampled destination cells.  Returns
-    (new_aero, diag) with the overflow counters.
+def rebucket(aero: AeroState, dest_k, dj, di, horizontal, drop, acc, cfg: Config,
+             key):
+    """Move particles to their sampled destination cells; ``drop`` marks
+    particles leaving an open domain, which vanish.  Returns (new_aero,
+    diag) with the overflow counters.
 
     * ranks: every mover's within-cell rank among movers of its destination
       class (0..nz-1 a vertical target level, nz+d a horizontal face
@@ -232,7 +261,7 @@ def rebucket(aero: AeroState, dest_k, dj, di, horizontal, acc, cfg: Config, key)
     k_thin, k_rot = rng.split(key)
 
     kk = torch.arange(nz, device=dev).reshape(nz, 1, 1, 1)
-    alive = aero.alive
+    alive = aero.alive & ~drop
     vert = (~horizontal) & (dest_k != kk)
     hdir = torch.where(di < 0, 0, torch.where(di > 0, 1, torch.where(dj < 0, 2, 3)))
     dcode4 = torch.where(vert, dest_k, torch.where(horizontal, nz + hdir, -1))
@@ -339,14 +368,14 @@ def rebucket(aero: AeroState, dest_k, dj, di, horizontal, acc, cfg: Config, key)
 def transport_step(aero: AeroState, probs: OutflowProbs, xkhh, exch_h,
                    grid: Grid, cfg: Config, dt, key, rho3, dz3):
     """Full stochastic transport step on one device: probabilities -> move
-    draw -> rebucket with destination-side preweight thinning.  Returns
-    (new_aero, diag).  Periodic lateral boundaries only."""
-    if not (cfg.boundary.periodic_x and cfg.boundary.periodic_y):
-        raise NotImplementedError("open lateral boundaries are not ported")
+    draw -> rebucket with destination-side preweight thinning.  Particles
+    sampled across an open lateral boundary are removed.  Returns
+    (new_aero, diag)."""
     k_mv, k_thin = rng.split(key)
-    p_hdiff = horizontal_diffusion_probs(xkhh, grid, dt, rho3)
+    p_hdiff = horizontal_diffusion_probs(xkhh, grid, dt, rho3, cfg)
     ph = normalized_face_probs(probs, p_hdiff)
     R = vertical_operator(probs, exch_h, grid, dt, rho3, dz3)
-    acc = preweight_acceptance(aero, ph, R)
+    acc = preweight_acceptance(aero, ph, R, cfg)
     dj, di, dest_k, horizontal = sample_moves(aero, ph, R, k_mv)
-    return rebucket(aero, dest_k, dj, di, horizontal, acc, cfg, k_thin)
+    drop = open_boundary_drop(dj, di, horizontal, cfg)
+    return rebucket(aero, dest_k, dj, di, horizontal, drop, acc, cfg, k_thin)

@@ -21,6 +21,7 @@ from ...grid import Grid
 from ...ops.advection import face_fluxes, flux_divergence
 from ...ops.stencil import AXIS_X, AXIS_Y, shift
 from ...ops.tridiag import solve as tridiag_solve
+from ..physics.morrison import morrison_step
 from .solve import bc_pair, horizontal_k, laplacian_h
 from .state import DycoreState, replace
 
@@ -443,13 +444,14 @@ def dyn_step_arw(state: DycoreState, grid: Grid, cfg: Config):
 def solve_step_arw(state: DycoreState, grid: Grid, cfg: Config):
     """One full mass-coordinate dycore timestep: RK3 dynamics + mu-coupled
     scalar families advected with the acoustic-averaged fluxes, with
-    per-class flux capture.  Returns (new_state, StepDiag)."""
+    per-class flux capture, then the Morrison microphysics adjustment when
+    mp_physics=10.  Returns (new_state, StepDiag)."""
     from ...ops.advection import rk3_advect_mono, rk3_advect_pd
     from .solve import StepDiag, smagorinsky_khh
 
     dyn = cfg.dynamics
-    if dyn.mp_physics:
-        raise NotImplementedError("mp_physics is not ported")
+    if dyn.mp_physics in (1, 2):
+        raise NotImplementedError("mp_physics 1/2 (Kessler/WSM5) is not ported")
     bx, by = bc_pair(cfg)
     rdeta = 1.0 / grid.deta
 
@@ -487,5 +489,7 @@ def solve_step_arw(state: DycoreState, grid: Grid, cfg: Config):
     new = replace(new, moist=moist, chem=chem, num_conc=num_conc)
     _, _, _, p_full, _, _, _ = diagnose(new, grid, cfg.n_moist_mass)
     new = replace(new, p_p=p_full - grid.p_base.reshape(-1, 1, 1))
+    if dyn.mp_physics == 10:
+        new = morrison_step(new, grid, dyn.dt)
     return new, StepDiag(probs=probs, xkhh=xkhh, rho_u=U_avg, rho_v=V_avg,
                          rho_w=fzm_avg)

@@ -151,13 +151,14 @@ _J_PARAMS = {
 }
 
 
-def photolysis_rates(cosz):
+def photolysis_rates(cosz, j_scale=None):
     """J-values [1/s] for every photolysis channel from cos(solar zenith)
-    (a float32 tensor).  The reference's optional per-cell actinic-flux
-    factor ``j_scale`` comes from the aerosol optics, which are not ported
-    (``do_optical`` is refused), so it is left out."""
+    (a float32 tensor).  ``j_scale``: optional per-cell actinic-flux factor
+    (the aerosol attenuation, ``physics.radiation.photolysis_aerosol_factor``)
+    applied to every channel."""
     mu = torch.clamp(cosz, min=0.0)
-    return {name: a * mu ** b for name, (a, b) in _J_PARAMS.items()}
+    js = 1.0 if j_scale is None else j_scale          # x * 1.0 is x exactly
+    return {name: a * mu ** b * js for name, (a, b) in _J_PARAMS.items()}
 
 
 def cos_zenith(lat_deg, lon_deg, day_of_year, utc_sec):
@@ -442,16 +443,17 @@ def build_mechanism(gas_names=None, device="cpu") -> Mechanism:
 # ---------------------------------------------------------------------------
 # Batched ROS2 solver (all cells advance in lockstep)
 # ---------------------------------------------------------------------------
-def rate_coefficients(mech: Mechanism, temp, pressure, rh, cosz):
+def rate_coefficients(mech: Mechanism, temp, pressure, rh, cosz, j_scale=None):
     """Per-cell rate coefficients in ppb-space: k2nd * M * 1e-9 for
-    two-reactant rows, k as-is for first-order rows.  Returns [..., R]."""
+    two-reactant rows, k as-is for first-order rows.  Returns [..., R].
+    ``j_scale``: per-cell actinic-flux factor (see :func:`photolysis_rates`)."""
     T = temp.to(torch.float32)
     p = pressure.to(torch.float32)
     M = p / (c.BOLTZMANN * T) * 1e-6          # molec/cm3
     # water vapor number density from RH (Tetens over liquid)
     esat = 610.78 * torch.exp(17.27 * (T - 273.15) / (T - 35.85))
     H2O = rh * esat / (c.BOLTZMANN * T) * 1e-6
-    J = photolysis_rates(cosz)
+    J = photolysis_rates(cosz, j_scale)
     ks = [fn(T, M, H2O, J) for fn in mech.rate_fns]
     k = torch.stack([torch.broadcast_to(ki, T.shape) for ki in ks], dim=-1)
     conv = torch.where(mech.has2, M[..., None] * 1e-9, 1.0)
@@ -588,7 +590,7 @@ def ros2_substep_w(mech: Mechanism, conc, k_ppb, h: float, a_inv):
 
 def cbmz_step(mech: Mechanism, gas_ppb, temp, pressure, rh, cosz, dt,
               n_sub: int = 6, w_method: bool = True,
-              cell_block: int = CELL_BLOCK):
+              cell_block: int = CELL_BLOCK, j_scale=None):
     """Advance the gas mechanism by dt over every cell.
 
     gas_ppb: [..., S]; temp/pressure/rh/cosz: tensors or numbers broadcast
@@ -599,7 +601,8 @@ def cbmz_step(mech: Mechanism, gas_ppb, temp, pressure, rh, cosz, dt,
     ``cell_block``: cells are solved in slices of at most this many, so the
     dense per-cell [S, S] operators (23 KB per cell at S = 77) exist for one
     slice at a time.  The slices are not padded (the reference pads its last
-    block with zeros and slices the results away)."""
+    block with zeros and slices the results away).  ``j_scale``: per-cell
+    actinic-flux factor (1 when not given, as the reference broadcasts it)."""
     cell = tuple(gas_ppb.shape[:-1])
     S = gas_ppb.shape[-1]
     dev = gas_ppb.device
@@ -609,10 +612,12 @@ def cbmz_step(mech: Mechanism, gas_ppb, temp, pressure, rh, cosz, dt,
     h = _f32(np.float32(dt) / np.float32(n_sub))
     conc0 = gas_ppb.to(torch.float32).reshape(N, S)
     T, P, RH, MU = full(temp), full(pressure), full(rh), full(cosz)
+    JS = (torch.ones(N, dtype=torch.float32, device=dev) if j_scale is None
+          else full(j_scale))
 
     def solve_block(sl):
         conc = conc0[sl]
-        k_ppb = rate_coefficients(mech, T[sl], P[sl], RH[sl], MU[sl])
+        k_ppb = rate_coefficients(mech, T[sl], P[sl], RH[sl], MU[sl], JS[sl])
         if w_method:
             a_inv = fast_inv(ros2_operator(mech, conc, k_ppb, h))
             for _ in range(n_sub):

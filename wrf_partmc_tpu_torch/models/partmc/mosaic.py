@@ -283,15 +283,17 @@ def soa_partition(aero: AeroState, gas_ppb, gas_data: GasData, ad: AeroData,
 def mosaic_timestep(mech: Mechanism, aero: AeroState, gas_ppb,
                     gas_data: GasData, ad: AeroData, env: EnvState,
                     dt, cosz, do_gas: bool = True,
-                    n_sub_gas: int = 6, n_sub_astem: int = 4):
+                    n_sub_gas: int = 6, n_sub_astem: int = 4, j_scale=None):
     """Full MOSAIC-equivalent chemistry macro-step (the reference's
     ``mosaic_timestep`` coupling surface): CBM-Z gas photochemistry, then
     ASTEM inorganic transfer, then SOA partitioning.  Water equilibrium is
-    composed by the caller (driver)."""
+    composed by the caller (driver).  ``j_scale``: per-cell aerosol
+    attenuation of the actinic flux
+    (``physics.radiation.photolysis_aerosol_factor``)."""
     gas = gas_ppb.to(torch.float32)
     if do_gas:
         gas = cbmz_step(mech, gas, env.temp, env.pressure, env.rel_humid,
-                        cosz, dt, n_sub=n_sub_gas)
+                        cosz, dt, n_sub=n_sub_gas, j_scale=j_scale)
     aero, gas = astem_inorganic(aero, gas, gas_data, ad, env, dt,
                                 n_sub=n_sub_astem)
     aero, gas = soa_partition(aero, gas, gas_data, ad, env, dt)

@@ -56,9 +56,10 @@ def _check(name, x, idx, idx_len):
                          f"{tuple(idx.shape)}")
     if not (x.is_contiguous() and idx.is_contiguous()):
         raise ValueError(f"{name}: payload and index must be contiguous")
-    if x.shape[0] > 65535:
-        raise ValueError(f"{name}: batch {x.shape[0]} exceeds the grid's "
-                         "y dimension (65535)")
+    # the kernel's grid: per cell one block of 128 threads per 128 index slots
+    if x.shape[0] * -(-idx_len // 128) > 2**31 - 1:
+        raise ValueError(f"{name}: {x.shape[0]} cells x {idx_len} slots exceed the "
+                         "launch grid (2^31 - 1 blocks of 128)")
 
 
 def scatter_rows_cuda(x, dst, L2: int):

@@ -28,16 +28,23 @@ def tree_map(fn, obj):
     return obj
 
 
+def _children(obj):
+    """(name, child) pairs of a dataclass's fields or a dict's items."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return [(f.name, getattr(obj, f.name)) for f in dataclasses.fields(obj)]
+    if isinstance(obj, dict):
+        return list(obj.items())
+    return []
+
+
 def tensor_leaves(obj, prefix: str) -> dict:
     """Flat ``{name: tensor}`` of the tensor leaves of nested dataclasses
-    (names joined with ``__`` so they are valid buffer names)."""
-    out = {}
+    and dicts (names joined with ``__`` so they are valid buffer names)."""
     if isinstance(obj, torch.Tensor):
-        out[prefix] = obj
-    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        for f in dataclasses.fields(obj):
-            out.update(tensor_leaves(getattr(obj, f.name),
-                                     f"{prefix}__{f.name}"))
+        return {prefix: obj}
+    out = {}
+    for name, child in _children(obj):
+        out.update(tensor_leaves(child, f"{prefix}__{name}"))
     return out
 
 
@@ -51,4 +58,6 @@ def with_leaves(obj, prefix: str, leaves: dict):
             f.name: with_leaves(getattr(obj, f.name), f"{prefix}__{f.name}",
                                 leaves)
             for f in dataclasses.fields(obj) if f.init})
+    if isinstance(obj, dict):
+        return {k: with_leaves(v, f"{prefix}__{k}", leaves) for k, v in obj.items()}
     return obj
