@@ -8,7 +8,10 @@ Phases, each printed on its own line and each fatal on failure:
 1. the card: its name and power limit (nvidia-smi);
 2. build: compile the hand-written CUDA kernels from ``wrf_partmc_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at the
-   shapes of the em_uniform main path, with both times;
+   shapes of the em_uniform main path, with its time, the plain version's,
+   the library call's (K2 ``torch.scatter``, K3 ``torch.gather``; none for
+   K1) and its bound (the least time for the bytes these inputs need at
+   3.35 TB/s, or for the operations at 67 TFLOP/s, whichever is larger);
 4. card against CPU: one coupled step at 12x12x4 on ``cuda`` and on ``cpu``
    from the same state;
 5. main path: the em_uniform coupled step at 40x40x10 cells, 1000 particles
@@ -35,7 +38,11 @@ Phases, each printed on its own line and each fatal on failure:
 
 After each of the paths 5, 7, 9 and 11, every kernel is held against its
 plain version at each argument shape that path launched it with and no
-earlier check held.
+earlier check held, with the same four times.  Paths 5 and 11 also keep
+the index arrays their first transport and coagulation steps gave K2 and
+K3; after each, both kernels run on those indices (bit-exact against the
+plain version) with the share of rows that move, the times and the bound
+for those indices.
 
 The line before the last is the kernel summary as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -142,11 +149,29 @@ def read_counts():
             {k: set(fn.shapes) for k, fn in fns.items()})
 
 
+# the H100 SXM's peaks (NVIDIA's data sheet) for the bounds: device memory
+# and float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+
+def bound(n_bytes: float, n_ops: float = 0.0):
+    """(ms, "bytes" or "operations"): the least time the card could take to
+    move ``n_bytes`` and do ``n_ops`` float32 operations."""
+    t_b = 1e3 * n_bytes / HBM_BYTES_PER_S
+    t_o = 1e3 * n_ops / FP32_OPS_PER_S
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
 def check_thomas(gen, shapes):
     """K1 against solve_scan on random inputs with the argument shapes
     (dl, d, du, b): off-diagonals in [-1, 1), main diagonal 4 + |N(0, 1)|,
     so every column is diagonally dominant; rel err <= 1e-5 of the largest
-    value.  Returns (max_abs_err, kernel ms, plain ms)."""
+    value.  The bound reads dl, d, du and b once and writes x once; its
+    operations are 9 per unknown (7 in the forward sweep, 2 back).  No
+    single PyTorch call solves a banded system, so library_ms is null."""
+    import math
+
     import torch
 
     from wrf_partmc_tpu_torch.ops import tridiag
@@ -163,64 +188,129 @@ def check_thomas(gen, shapes):
     rel = err / float(x_p.abs().max())
     ms = cuda_ms(lambda: tridiag.thomas_solve(dl, d, du, b))
     pms = cuda_ms(lambda: tridiag.solve_scan(dl, d, du, b))
+    n_b = math.prod(b_s)
+    bms, by = bound(4 * (sum(math.prod(s) for s in (dl_s, d_s, du_s)) + 2 * n_b), 9 * n_b)
     print(f"[kernels] K1 thomas_solve rhs {list(b_s)} coefficients {list(d_s)}: "
           f"max_abs_err {err:.3e} max_rel_err {rel:.3e} kernel {ms:.4f} ms plain "
-          f"{pms:.4f} ms")
+          f"{pms:.4f} ms bound {bms:.6f} ms ({by}) share {bms / ms:.3f}")
     require(rel <= 1e-5, f"K1 at rhs {b_s} disagrees with plain: rel {rel}")
-    return err, ms, pms
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None, bound_ms=bms,
+                bound_by=by)
 
 
-def check_scatter(gen, shapes):
-    """K2 against scatter_rows_plain, bit for bit, on a payload of
-    ``shapes[0]`` into ``shapes[1]`` slots, with unique destinations and a
-    tenth of the rows dropped.  Returns (max_abs_err, ms, plain ms)."""
+def scatter_bound(x, dst, L2):
+    """K2's least traffic for these inputs: the rows with a dst in [0, L2)
+    read once, the dst row read once, the whole output written once."""
+    C, CH, L1 = x.shape
+    moved = int(((dst >= 0) & (dst < L2)).sum())
+    return bound(4 * (moved * CH + C * L1 + C * CH * L2)), moved / (C * L1)
+
+
+def gather_bound(x, src):
+    """K3's least traffic for these inputs: each distinct source row read
+    once, the src row read once, the whole output written once."""
+    import torch
+
+    C, CH, L1 = x.shape
+    L2 = src.shape[1]
+    valid = (src >= 0) & (src < L1)
+    hit = torch.zeros((C, L1 + 1), dtype=torch.bool, device=src.device)
+    hit.scatter_(1, torch.where(valid, src, L1).long(), True)
+    rows = int(hit[:, :L1].sum())
+    return bound(4 * (rows * CH + C * L2 + C * CH * L2)), rows / (C * L1)
+
+
+def time_scatter(x, dst, L2, label):
+    """K2 against scatter_rows_plain, bit for bit, then the kernel, the
+    plain version and the library call timed on the same inputs.  The
+    library call is one ``torch.scatter`` of x into a zeroed [C, CH, L2+1]
+    buffer with dropped rows sent to the spare slot L2; the buffer and the
+    int64 index (an expanded view) are made outside the timed window."""
     import torch
 
     from wrf_partmc_tpu_torch.ops import place
+
+    C, CH, L1 = x.shape
+    out_k = place.scatter_rows_cuda(x, dst, L2)
+    out_p = place.scatter_rows_plain(x, dst, L2)
+    torch.cuda.synchronize()
+    require(torch.equal(out_k, out_p), f"K2 scatter {label} not bit-exact")
+    err = float((out_k - out_p).abs().max())
+    del out_k, out_p
+    zeros = torch.zeros((C, CH, L2 + 1), device=x.device)
+    idx = torch.where((dst >= 0) & (dst < L2), dst, L2).long()[:, None, :].expand(C, CH, L1)
+    out_l = torch.scatter(zeros, 2, idx, x)
+    require(torch.equal(out_l[..., :L2], place.scatter_rows_plain(x, dst, L2)),
+            f"K2 library call {label} disagrees")
+    del out_l
+    ms = cuda_ms(lambda: place.scatter_rows_cuda(x, dst, L2))
+    pms = cuda_ms(lambda: place.scatter_rows_plain(x, dst, L2))
+    lms = cuda_ms(lambda: torch.scatter(zeros, 2, idx, x))
+    (bms, by), share = scatter_bound(x, dst, L2)
+    print(f"[kernels] K2 scatter_rows {label}: bit-exact, rows moved {share:.4f}; kernel "
+          f"{ms:.4f} ms plain {pms:.4f} ms library {lms:.4f} ms bound {bms:.4f} ms "
+          f"({by}) share of bound {bms / ms:.3f}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                bound_by=by, moved=share)
+
+
+def time_gather(x, src, label):
+    """K3 against gather_rows_plain, bit for bit, then the kernel, the plain
+    version and the library call timed on the same inputs.  The library
+    call is one ``torch.gather`` from x padded with a zero slot at L1, with
+    empty rows pointed there; the padded copy and the int64 index (an
+    expanded view) are made outside the timed window."""
+    import torch
+
+    from wrf_partmc_tpu_torch.ops import place
+
+    C, CH, L1 = x.shape
+    L2 = src.shape[1]
+    out_k = place.gather_rows_cuda(x, src)
+    out_p = place.gather_rows_plain(x, src)
+    torch.cuda.synchronize()
+    require(torch.equal(out_k, out_p), f"K3 gather {label} not bit-exact")
+    err = float((out_k - out_p).abs().max())
+    del out_k
+    xp = torch.cat([x, torch.zeros((C, CH, 1), device=x.device)], dim=2)
+    idx = torch.where((src >= 0) & (src < L1), src, L1).long()[:, None, :].expand(C, CH, L2)
+    require(torch.equal(torch.gather(xp, 2, idx), out_p), f"K3 library call {label} disagrees")
+    del out_p
+    ms = cuda_ms(lambda: place.gather_rows_cuda(x, src))
+    pms = cuda_ms(lambda: place.gather_rows_plain(x, src))
+    lms = cuda_ms(lambda: torch.gather(xp, 2, idx))
+    (bms, by), share = gather_bound(x, src)
+    print(f"[kernels] K3 gather_rows {label}: bit-exact, source rows read {share:.4f}, "
+          f"output rows filled {float(((src >= 0) & (src < L1)).float().mean()):.4f}; "
+          f"kernel {ms:.4f} ms plain {pms:.4f} ms library {lms:.4f} ms bound {bms:.4f} ms "
+          f"({by}) share of bound {bms / ms:.3f}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                bound_by=by, moved=share)
+
+
+def check_scatter(gen, shapes):
+    """K2 on a random payload of ``shapes[0]`` into ``shapes[1]`` slots,
+    with unique destinations for min(L1, L2) rows and a tenth of them
+    dropped."""
+    import torch
 
     x_shape, L2 = shapes
     C, CH, L1 = x_shape
     x = torch.randn(x_shape, generator=gen, device="cuda")
     dst = _rand_unique_dst(gen, C, L1, L2, 0.1, x.device)
-    out_k = place.scatter_rows_cuda(x, dst, L2)
-    out_p = place.scatter_rows_plain(x, dst, L2)
-    torch.cuda.synchronize()
-    require(torch.equal(out_k, out_p), f"K2 scatter {list(x_shape)}->{L2} not bit-exact")
-    err = float((out_k - out_p).abs().max())
-    del out_k, out_p
-    ms = cuda_ms(lambda: place.scatter_rows_cuda(x, dst, L2))
-    pms = cuda_ms(lambda: place.scatter_rows_plain(x, dst, L2))
-    gbs = 2 * x.numel() * 4 / (ms * 1e-3) / 1e9
-    print(f"[kernels] K2 scatter_rows {list(x_shape)}->{L2}: bit-exact, kernel "
-          f"{ms:.4f} ms ({gbs:.0f} GB/s moved) plain {pms:.4f} ms")
-    return err, ms, pms
+    return time_scatter(x, dst, L2, f"{list(x_shape)}->{L2}")
 
 
 def check_gather(gen, shapes):
-    """K3 against gather_rows_plain, bit for bit, from a payload of
-    ``shapes[0]`` into ``shapes[1]`` slots, with -1s and duplicate sources.
-    Returns (max_abs_err, ms, plain ms)."""
+    """K3 from a random payload of ``shapes[0]`` into ``shapes[1]`` slots,
+    sources drawn uniformly from [-1, L1) (empty rows and duplicates)."""
     import torch
-
-    from wrf_partmc_tpu_torch.ops import place
 
     x_shape, L2 = shapes
     C, CH, L1 = x_shape
     x = torch.randn(x_shape, generator=gen, device="cuda")
     src = torch.randint(-1, L1, (C, L2), generator=gen, device="cuda", dtype=torch.int32)
-    out_k = place.gather_rows_cuda(x, src)
-    out_p = place.gather_rows_plain(x, src)
-    torch.cuda.synchronize()
-    require(torch.equal(out_k, out_p), f"K3 gather {list(x_shape)}->{L2} not bit-exact")
-    err = float((out_k - out_p).abs().max())
-    n_out = out_k.numel()
-    del out_k, out_p
-    ms = cuda_ms(lambda: place.gather_rows_cuda(x, src))
-    pms = cuda_ms(lambda: place.gather_rows_plain(x, src))
-    gbs = 2 * n_out * 4 / (ms * 1e-3) / 1e9
-    print(f"[kernels] K3 gather_rows {list(x_shape)}->{L2}: bit-exact, kernel "
-          f"{ms:.4f} ms ({gbs:.0f} GB/s moved) plain {pms:.4f} ms")
-    return err, ms, pms
+    return time_gather(x, src, f"{list(x_shape)}->{L2}")
 
 
 CHECKS = {"thomas_solve": check_thomas, "scatter_rows": check_scatter,
@@ -232,14 +322,18 @@ def hold(kernels: dict, gen, name: str, shapes):
     """Hold kernel ``name`` against its plain version at ``shapes``; the
     kernels line reports the largest error of all its checks."""
     res = CHECKS[name](gen, shapes)
-    kernels[name]["max_abs_err"] = max(kernels[name].get("max_abs_err", 0.0), res[0])
+    kernels[name]["max_abs_err"] = max(kernels[name].get("max_abs_err", 0.0),
+                                       res["max_abs_err"])
     CHECKED[name].add(shapes)
     return res
 
 
+KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+
+
 def phase_kernels(kernels: dict):
-    """Each kernel at the chem-off main path's shapes, with its times for
-    the kernel table (PERF.md)."""
+    """Each kernel at the chem-off main path's shapes, with its times and
+    bound for the kernel table (PERF.md)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -255,7 +349,7 @@ def phase_kernels(kernels: dict):
     k3 = [hold(kernels, gen, "gather_rows", ((C, CH, L1), P)) for L1 in (AB, P)]
     for name, res, main in (("thomas_solve", k1, 1), ("scatter_rows", k2, 0),
                             ("gather_rows", k3, 0)):
-        kernels[name].update(ms=res[main][1], plain_ms=res[main][2])
+        kernels[name].update({k: res[main][k] for k in KEYS})
     torch.cuda.empty_cache()
 
 
@@ -361,8 +455,12 @@ def phase_main_path(kernels: dict, n_timed: int = 6):
     torch.cuda.synchronize()
     print(f"[main] build 40x40x10, 1000/cell, cap 1280: "
           f"{time.perf_counter() - t0:.3f} s, alive {int(state.aero.n_alive().sum())}")
-    # step 0 coagulates, then steps 1..6, of which step 6 coagulates
+    # step 0 coagulates, then steps 1..6, of which step 6 coagulates; step 0
+    # leaves copies of its K2/K3 index arrays (outside the timed steps)
+    by_caller, captured = {}, {}
+    restore = attribute_launches(by_caller, captured)
     state, warm, dt, launches, shapes = drive(model, state, n_timed)
+    restore()
     cells = 40 * 40 * 10
     ms = 1e3 * dt / n_timed
     alive = int(state.aero.n_alive().sum())
@@ -377,7 +475,8 @@ def phase_main_path(kernels: dict, n_timed: int = 6):
     require(tuple(state.aero.num.shape) == (10, 40, 40, 1280), "bad num shape")
     require(alive > 0, "no particle alive")
     require_launched(kernels, "launches", launches, "main path")
-    return shapes
+    print(f"[main] kernel launches by caller: {json.dumps(by_caller)}")
+    return shapes, captured
 
 
 def check_rates_on_card():
@@ -609,7 +708,8 @@ def phase_card_vs_cpu_cares():
 
     from wrf_partmc_tpu_torch.cares import build_cares_shape
 
-    model, state = build_cares_shape(12, 10, 8, n_part=16, cap=32, chem_on=True)
+    model, state = build_cares_shape(12, 10, 8, n_part=16, cap=32, chem_on=True,
+                                     device="cpu")
     out_cpu = model(state)                      # step 0 runs the chemistry
     out_gpu = model.to("cuda")(state.to("cuda")).to("cpu")
     g_rel = float(((out_gpu.gas - out_cpu.gas).abs() / (out_cpu.gas.abs() + 1e-9)).max())
@@ -646,8 +746,8 @@ def phase_cares_path(kernels: dict, n_timed: int = 20):
     require(n_timed % m_chem == 0, f"{n_timed} timed steps hold no whole chem cadence")
     print(f"[cares] build 72x72x24, 100/cell, cap 128, 77 gases, chem_dt 300 s, dt 30 s: "
           f"{time.perf_counter() - t0:.3f} s, alive {int(state.aero.n_alive().sum())}")
-    by_caller = {}
-    restore = attribute_launches(by_caller)
+    by_caller, captured = {}, {}
+    restore = attribute_launches(by_caller, captured)
     state, warm, dt, launches, shapes = drive(model, state, n_timed)
     restore()
     ms = 1e3 * dt / n_timed
@@ -672,15 +772,17 @@ def phase_cares_path(kernels: dict, n_timed: int = 20):
     print(f"[cares] kernel launches by caller: {json.dumps(by_caller)}")
     for caller, n in by_caller.items():
         require(n > 0, f"CARES path: no kernel launch from {caller}")
-    return shapes
+    return shapes, captured
 
 
-def attribute_launches(by_caller: dict):
+def attribute_launches(by_caller: dict, captured: dict):
     """Count, per caller, the kernel launches made inside the calls each of
     these modules makes to the kernels' dispatchers: K1 from the MYJ q2
     column and the Noah soil column, K2 and K3 from the transport rebucket,
-    K3 from the coagulation pairing.  Returns a function that restores the
-    modules."""
+    K3 from the coagulation pairing.  The first call of K2 or K3 at each
+    (caller, shape) also leaves a copy of its index array in ``captured``
+    (the path's own dst and src; keyed (kernel, caller, payload shape,
+    slots)).  Returns a function that restores the modules."""
     from wrf_partmc_tpu_torch.models.coupled import transport
     from wrf_partmc_tpu_torch.models.partmc import coag
     from wrf_partmc_tpu_torch.models.physics import lsm, myj
@@ -696,7 +798,13 @@ def attribute_launches(by_caller: dict):
         inner = getattr(mod, attr)
         by_caller[caller] = 0
 
-        def counted(*args, _inner=inner, _fn=fns[kernel], _caller=caller):
+        def counted(*args, _inner=inner, _fn=fns[kernel], _kernel=kernel, _caller=caller):
+            if _kernel != "thomas_solve":
+                x, idx = args[0], args[1]
+                slots = args[2] if _kernel == "scatter_rows" else idx.shape[1]
+                key = (_kernel, _caller, tuple(x.shape), slots)
+                if key not in captured:
+                    captured[key] = idx.clone()
             before = _fn.launches
             out = _inner(*args)
             by_caller[_caller] += _fn.launches - before
@@ -708,6 +816,26 @@ def attribute_launches(by_caller: dict):
         for mod, attr, inner in saved:
             setattr(mod, attr, inner)
     return restore
+
+
+def phase_path_indices(label: str, captured: dict):
+    """K2 and K3 on the index arrays a path gave them in its first transport
+    and coagulation steps (random payloads of the same shapes; the time of
+    a copy does not depend on the values): bit-exactness, the kernel's,
+    plain and library times, the bound for these indices and the share of
+    rows that move."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for (kernel, caller, x_shape, slots), idx in sorted(captured.items()):
+        x = torch.randn(x_shape, generator=gen, device="cuda")
+        tag = f"{label}, {caller}, path indices, {list(x_shape)}->{slots}"
+        if kernel == "scatter_rows":
+            time_scatter(x, idx, slots, tag)
+        else:
+            time_gather(x, idx, tag)
+        del x
+        torch.cuda.empty_cache()
 
 
 def _free():
@@ -741,9 +869,11 @@ def main() -> int:
         phase_build()
         phase_kernels(kernels)
         phase_card_vs_cpu()
-        shapes = phase_main_path(kernels)
+        shapes, captured = phase_main_path(kernels)
         _free()
         phase_path_shapes("main path", kernels, shapes)
+        phase_path_indices("main path", captured)
+        del captured
         phase_card_vs_cpu_chem()
         model, state, shapes = phase_chem_main_path(kernels)
         phase_chem_split(model, state)
@@ -754,9 +884,11 @@ def main() -> int:
         _free()
         phase_path_shapes("40-class path", kernels, shapes)
         phase_card_vs_cpu_cares()
-        shapes = phase_cares_path(kernels)
+        shapes, captured = phase_cares_path(kernels)
         _free()
         phase_path_shapes("CARES path", kernels, shapes)
+        phase_path_indices("CARES path", captured)
+        del captured
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -20,7 +20,7 @@ from wrf_partmc_tpu_torch.entry import build
 @pytest.fixture(scope="module")
 def runs():
     fn, cs = ge._build(nx=12, ny=12, nz=4, n_part=16, cap=48, chem_on=False, n_sources=38)
-    model, state = build(12, 12, 4, n_part=16, cap=48, n_sources=38)
+    model, state = build(12, 12, 4, n_part=16, cap=48, n_sources=38, device="cpu")
     return jax.tree.map(np.asarray, jax.jit(fn)(cs)), to_numpy(model(state)), model
 
 

@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from wrf_partmc_tpu_torch.cares import build_cares_shape
-from wrf_partmc_tpu_torch.convert import from_numpy, to_numpy
+from wrf_partmc_tpu_torch.convert import config_from_reference, from_numpy, to_numpy
 from wrf_partmc_tpu_torch.models.coupled.driver import CoupledModel, check_supported
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -41,7 +41,7 @@ SHAPE = dict(nx=12, ny=10, nz=8, n_part=16, cap=32, chem_on=True)
 def runs():
     fn, cs, cfg, grid = jax_build_cares_shape(**SHAPE)
     step = jax.jit(fn)
-    model, state = build_cares_shape(**SHAPE)
+    model, state = build_cares_shape(**SHAPE, device="cpu")
     init = (jax.tree.map(np.asarray, cs), to_numpy(state))
     jax_states, port_states = [], []
     for _ in range(N_STEPS):
@@ -54,7 +54,7 @@ def runs():
 
 def test_same_config_and_initial_state(runs):
     _, _, model, (j0, t0), jcfg = runs
-    assert model.cfg == jcfg
+    assert model.cfg == config_from_reference(jcfg)
     d = model.cfg.dynamics
     assert (d.bl_physics, d.ra_physics, d.cu_physics, d.mp_physics,
             d.sf_surface_physics) == (2, 4, 5, 10, 2)
@@ -153,7 +153,8 @@ def test_open_boundary_run_stays_finite():
     """Chemistry off at 14x12x10 for 20 steps, past step 16, where the
     reference went NaN before its wrfbdy forced mu and ph: fields finite,
     surface-pressure perturbation under 30 hPa, particles alive."""
-    model, state = build_cares_shape(14, 12, 10, n_part=10, cap=24, chem_on=False)
+    model, state = build_cares_shape(14, 12, 10, n_part=10, cap=24, chem_on=False,
+                                     device="cpu")
     for _ in range(20):
         state = model(state)
     for name in ("theta_p", "w", "mu", "moist"):

@@ -35,7 +35,7 @@ from wrf_partmc_tpu.models.physics import myj as jmyj
 from wrf_partmc_tpu.models.physics import radiation as jrad
 from wrf_partmc_tpu.models.physics.thermo import saturation_mixing_ratio as jax_qsat
 
-from wrf_partmc_tpu_torch.convert import from_numpy, to_numpy
+from wrf_partmc_tpu_torch.convert import config_from_reference, from_numpy, to_numpy
 from wrf_partmc_tpu_torch.grid import make_grid
 from wrf_partmc_tpu_torch.models.physics import grell, landuse, lsm, morrison, myj, radiation
 
@@ -84,7 +84,7 @@ def setup():
         s, moist=moist.astype(np.float32),
         u=r.normal(5.0, 3.0, s.u.shape).astype(np.float32),
         v=r.normal(0.0, 3.0, s.v.shape).astype(np.float32))
-    return cfg, jgrid, make_grid(cfg), s, temp
+    return cfg, jgrid, make_grid(config_from_reference(cfg)), s, temp
 
 
 # ---- MYJ ------------------------------------------------------------------

@@ -112,7 +112,7 @@ def test_dms_addition_rate_is_not_flushed(mechs):
     out = cbmz.rate_coefficients(pm, *map(torch.tensor, (T, P, RH, mu))).numpy()
     assert (ref[:, i_dms] == 0.0).all()
     T64, P64 = T.astype(np.float64), P.astype(np.float64)
-    from wrf_partmc_tpu import constants as c
+    from wrf_partmc_tpu_torch import constants as c
     M = P64 / (c.BOLTZMANN * T64) * 1e-6
     o2 = 0.21 * M
     k = 1.7e-42 * np.exp(7810.0 / T64) * o2 / (1.0 + 5.5e-31 * np.exp(7460.0 / T64) * o2)
@@ -124,11 +124,14 @@ def test_solar_cos_zenith(t):
     """The driver's float32 solar time and declination formula."""
     from wrf_partmc_tpu.config import uniform_test_config
 
+    from wrf_partmc_tpu_torch.config import DomainConfig
+    from wrf_partmc_tpu_torch.convert import config_from_reference
+
     dom = uniform_test_config().domain
     utc = jnp.float32(dom.gmt * 3600.0) + jnp.float32(t)
     ref = jax.jit(lambda u: jcbmz.cos_zenith(dom.lat0, dom.lon0, dom.julian_day + u // 86400.0,
                                              u % 86400.0))(utc)
-    out = cbmz.solar_cos_zenith(dom, t)
+    out = cbmz.solar_cos_zenith(config_from_reference(dom, DomainConfig), t)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
 
 

@@ -31,7 +31,8 @@ def runs():
     fn, cs = ge._build(nx=12, ny=12, nz=4, n_part=16, cap=48, everything_on=True,
                        chem_on=True, chem_dt=60.0)
     step = jax.jit(fn)
-    model, state = build(12, 12, 4, n_part=16, cap=48, chem_on=True, chem_dt=60.0)
+    model, state = build(12, 12, 4, n_part=16, cap=48, chem_on=True, chem_dt=60.0,
+                         device="cpu")
     init = (jax.tree.map(np.asarray, cs), to_numpy(state))
     jax_states, port_states = [], []
     for _ in range(N_STEPS):

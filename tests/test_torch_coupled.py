@@ -31,7 +31,7 @@ def runs():
     fn, cs = ge._build(nx=12, ny=12, nz=4, n_part=16, cap=48, everything_on=True,
                        chem_on=False)
     step = jax.jit(fn)
-    model, state = build(12, 12, 4, n_part=16, cap=48)
+    model, state = build(12, 12, 4, n_part=16, cap=48, device="cpu")
     jax_states, port_states = [], []
     for _ in range(N_STEPS):
         cs = step(cs)
@@ -81,7 +81,7 @@ def test_multi_step_domain_totals(runs):
 def test_chem_on_builds_and_steps():
     """``build(chem_on=True)`` (tests/test_torch_chem_coupled.py holds it
     against the JAX package): the chemistry macro-step runs at step 0."""
-    model, state = build(chem_on=True)
+    model, state = build(chem_on=True, device="cpu")
     out = model(state)
     assert model.mech is not None and model.mech.n_spec == out.gas.shape[-1] == 77
     assert not np.allclose(to_numpy(out).gas, to_numpy(state).gas)

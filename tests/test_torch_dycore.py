@@ -22,7 +22,7 @@ from wrf_partmc_tpu.config import DomainConfig, uniform_test_config
 from wrf_partmc_tpu.grid import make_grid as jax_make_grid
 from wrf_partmc_tpu.models.dycore.ideal import init_uniform as jax_init_uniform
 from wrf_partmc_tpu.models.dycore.solve import solve_step as jax_solve_step
-from wrf_partmc_tpu_torch.convert import from_numpy, to_numpy
+from wrf_partmc_tpu_torch.convert import config_from_reference, from_numpy, to_numpy
 from wrf_partmc_tpu_torch.grid import make_grid
 from wrf_partmc_tpu_torch.models.dycore.solve import solve_step
 
@@ -49,8 +49,8 @@ def stepped():
         chem=r.uniform(0.0, 0.05, s.chem.shape).astype(np.float32))
     jnew, jdiag = jax.jit(lambda st: jax_solve_step(st, jgrid, cfg))(s)
     jnew, jdiag = jax.tree.map(np.asarray, (jnew, jdiag))
-    grid = make_grid(cfg)
-    new, diag = solve_step(from_numpy(s), grid, cfg)
+    pcfg = config_from_reference(cfg)
+    new, diag = solve_step(from_numpy(s), make_grid(pcfg), pcfg)
     return jnew, jdiag, to_numpy(new), to_numpy(diag)
 
 

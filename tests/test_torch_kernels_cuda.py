@@ -4,7 +4,9 @@ plain versions against the JAX package instead).
 
     python -m pytest tests/test_torch_kernels_cuda.py -m gpu
 
-K2/K3 are copies and must be bit-exact; K1 performs the plain recurrence's
+K2/K3 are copies and must be bit-exact, at every layout their launch plan
+takes (whole cells in groups, channel tiles, bulk-copied and plainly
+loaded tiles); K1 performs the plain recurrence's
 float32 operations without FMA contraction and is held at 1e-6 relative.
 """
 
@@ -39,26 +41,101 @@ def test_thomas_kernel_matches_plain(cuda, cshape, bshape):
     torch.testing.assert_close(x, ref, rtol=1e-6, atol=1e-7)
 
 
-@pytest.mark.parametrize("B,CH,L1,L2", [(64, 33, 1280, 1120), (64, 33, 400, 400),
-                                        (7, 5, 48, 128), (70000, 3, 40, 40)])
-def test_scatter_kernel_bit_exact(cuda, B, CH, L1, L2):
-    g = torch.Generator(device=cuda).manual_seed(1)
-    x = torch.randn((B, CH, L1), generator=g, device=cuda)
+def _unique_dst(g, B, L1, L2, drop, cuda):
     n = min(L1, L2)
     perm = torch.argsort(torch.rand((B, L2), generator=g, device=cuda), dim=1)[:, :n]
     dst = torch.full((B, L1), -1, dtype=torch.int32, device=cuda)
     dst[:, :n] = perm.to(torch.int32)
-    dst[torch.rand((B, L1), generator=g, device=cuda) < 0.1] = -1
-    assert torch.equal(place.scatter_rows(x, dst, L2), place.scatter_rows_plain(x, dst, L2))
+    dst[torch.rand((B, L1), generator=g, device=cuda) < drop] = -1
+    return dst
 
 
-@pytest.mark.parametrize("B,CH,L1,L2", [(64, 33, 400, 1280), (64, 33, 1280, 1280),
-                                        (7, 5, 48, 16), (70000, 3, 40, 40)])
+def _junk_then_empty(shape, cuda):
+    """Leave NaNs in the caching allocator's next block of this size, so an
+    output slot the kernel fails to write shows."""
+    junk = torch.full(shape, float("nan"), device=cuda)
+    del junk
+
+
+# (B, CH, L1, L2): the path shapes (chem-off T1 1280->1120 and T2 400->400,
+# CARES T1 128->448 and T2 80->80) at few cells; channel tiles that do not
+# divide 33 (T1's output row is larger than one block's tile); L2 much
+# larger than L1 and the reverse; L not a multiple of 4 (the unaligned
+# store path), with and without channel tiles; groups of cells with a
+# partial last group; one cell; more than 65,535 cells
+SCATTER = [(64, 33, 1280, 1120), (64, 33, 400, 400), (7, 5, 48, 128), (70000, 3, 40, 40),
+           (5, 33, 128, 448), (5, 33, 448, 128), (9, 33, 80, 80), (1, 33, 1280, 1120),
+           (6, 13, 10, 10), (4, 33, 1283, 1121), (3, 37, 1282, 1282), (70001, 33, 80, 80)]
+
+
+@pytest.mark.parametrize("B,CH,L1,L2", SCATTER)
+def test_scatter_kernel_bit_exact(cuda, B, CH, L1, L2):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((B, CH, L1), generator=g, device=cuda)
+    dst = _unique_dst(g, B, L1, L2, 0.1, cuda)
+    _junk_then_empty((B, CH, L2), cuda)
+    before = place.scatter_rows_cuda.launches
+    out = place.scatter_rows(x, dst, L2)
+    assert place.scatter_rows_cuda.launches == before + 1
+    assert torch.equal(out, place.scatter_rows_plain(x, dst, L2))
+
+
+@pytest.mark.parametrize("B,CH,L1,L2", [(16, 33, 1280, 1120), (9, 33, 80, 80), (6, 13, 10, 10)])
+def test_scatter_kernel_dropped_and_out_of_range(cuda, B, CH, L1, L2):
+    """Rows whose dst are all -1 (whole warps and whole cells) and dst
+    outside [0, L2) drop; the output is zero there, not what the allocator
+    held."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((B, CH, L1), generator=g, device=cuda)
+    dst = _unique_dst(g, B, L1, L2, 0.5, cuda)
+    dst[0] = -1                                     # a cell with no mover
+    dst[1, : min(L1, 64)] = -1                      # whole warps dropped
+    bad = torch.rand((B, L1), generator=g, device=cuda) < 0.1
+    far = torch.randint(L2, 2 * L2 + 3, (B, L1), generator=g, device=cuda, dtype=torch.int32)
+    dst = torch.where(bad, torch.where(far % 2 == 0, far, -far), dst).contiguous()
+    _junk_then_empty((B, CH, L2), cuda)
+    out = place.scatter_rows(x, dst, L2)
+    assert torch.equal(out, place.scatter_rows_plain(x, dst, L2))
+    assert not bool(out[0].any())
+
+
+# the path shapes (chem-off T2 400->1280 and coagulation 1280->1280, CARES
+# T2 80->128 and coagulation 128->128) at few cells, and the cases above;
+# L1 = 1282 mixes bulk-copied and plainly loaded channel tiles in one block
+GATHER = [(64, 33, 400, 1280), (64, 33, 1280, 1280), (7, 5, 48, 16), (70000, 3, 40, 40),
+          (9, 33, 80, 128), (5, 33, 128, 128), (1, 33, 1280, 1280), (5, 33, 448, 128),
+          (5, 33, 128, 448), (6, 13, 10, 10), (4, 33, 1283, 1121), (3, 33, 1282, 640),
+          (70001, 33, 80, 128)]
+
+
+@pytest.mark.parametrize("B,CH,L1,L2", GATHER)
 def test_gather_kernel_bit_exact(cuda, B, CH, L1, L2):
     g = torch.Generator(device=cuda).manual_seed(2)
     x = torch.randn((B, CH, L1), generator=g, device=cuda)
     src = torch.randint(-1, L1, (B, L2), generator=g, device=cuda, dtype=torch.int32)
-    assert torch.equal(place.gather_rows(x, src), place.gather_rows_plain(x, src))
+    before = place.gather_rows_cuda.launches
+    out = place.gather_rows(x, src)
+    assert place.gather_rows_cuda.launches == before + 1
+    assert torch.equal(out, place.gather_rows_plain(x, src))
+
+
+@pytest.mark.parametrize("B,CH,L1,L2", [(16, 33, 1280, 1280), (9, 33, 80, 128), (6, 13, 10, 10)])
+def test_gather_kernel_empty_and_out_of_range(cuda, B, CH, L1, L2):
+    """A cell whose src are all -1 gives zeros; src outside [0, L1) gives a
+    zero row; a payload that is a misaligned view takes the plain loads."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((B, CH, L1), generator=g, device=cuda)
+    src = torch.randint(-1, L1, (B, L2), generator=g, device=cuda, dtype=torch.int32)
+    src[0] = -1
+    bad = torch.rand((B, L2), generator=g, device=cuda) < 0.1
+    far = torch.randint(L1, 2 * L1 + 3, (B, L2), generator=g, device=cuda, dtype=torch.int32)
+    src = torch.where(bad, torch.where(far % 2 == 0, far, -far), src).contiguous()
+    out = place.gather_rows(x, src)
+    assert torch.equal(out, place.gather_rows_plain(x, src))
+    assert not bool(out[0].any())
+    flat = torch.randn(B * CH * L1 + 1, generator=g, device=cuda)
+    xs = flat[1:].view(B, CH, L1)                   # 4 bytes past a 16-byte boundary
+    assert torch.equal(place.gather_rows(xs, src), place.gather_rows_plain(xs, src))
 
 
 def test_wrappers_refuse_bad_inputs(cuda):

@@ -24,7 +24,6 @@ import pytest
 import torch
 
 import __graft_entry__ as ge
-from wrf_partmc_tpu.config import BoundaryConfig
 from wrf_partmc_tpu.grid import make_grid as jax_make_grid
 from wrf_partmc_tpu.models.coupled import bdy as jbdy
 from wrf_partmc_tpu.models.coupled import boundary as jboundary
@@ -37,6 +36,7 @@ from wrf_partmc_tpu.models.partmc.dist import make_mode as jax_make_mode
 from wrf_partmc_tpu.models.partmc.scenario import constant_scenario as jax_constant_scenario
 from wrf_partmc_tpu.models.physics.pbl import k_profile_exch_h as jax_exch
 
+from wrf_partmc_tpu_torch.config import BoundaryConfig
 from wrf_partmc_tpu_torch.convert import from_numpy, to_numpy
 from wrf_partmc_tpu_torch.entry import make_config
 from wrf_partmc_tpu_torch.grid import make_grid

@@ -67,3 +67,26 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         place.scatter_rows_cuda(x, idx, 8)
     with pytest.raises(ValueError):
         place.gather_rows_cuda(x, idx)
+
+
+@pytest.mark.parametrize("B,CH,L1,L2", SHAPES)
+def test_out_of_range_indices_drop(B, CH, L1, L2):
+    """Indices outside [0, L) act as -1 (the function the CUDA kernels
+    compute): the scatter drops the row and the gather writes zeros, as the
+    JAX package does for -1."""
+    r = np.random.default_rng(4)
+    x, dst, src = _payload(5, B, CH, L1), _dst(6, B, L1, L2), _src(7, B, L1, L2)
+    far_d = np.where(r.random(dst.shape) < 0.5, L2 + r.integers(0, 9, dst.shape),
+                     -2 - r.integers(0, 9, dst.shape)).astype(np.int32)
+    bad_d = (dst < 0) & (r.random(dst.shape) < 0.5)
+    far_s = np.where(r.random(src.shape) < 0.5, L1 + r.integers(0, 9, src.shape),
+                     -2 - r.integers(0, 9, src.shape)).astype(np.int32)
+    bad_s = r.random(src.shape) < 0.2
+    out = place.scatter_rows(torch.from_numpy(x), torch.from_numpy(np.where(bad_d, far_d, dst)),
+                             L2).numpy()
+    np.testing.assert_array_equal(out, np.asarray(scatter_rows_ref(jnp.asarray(x),
+                                                                   jnp.asarray(dst), L2)))
+    out = place.gather_rows(torch.from_numpy(x),
+                            torch.from_numpy(np.where(bad_s, far_s, src))).numpy()
+    np.testing.assert_array_equal(out, np.asarray(gather_rows_ref(
+        jnp.asarray(x), jnp.asarray(np.where(bad_s, -1, src)))))

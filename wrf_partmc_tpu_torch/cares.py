@@ -11,7 +11,7 @@ relaxation zones).  The same ``Config``, universe, scenario, initial state,
 urban gas background, wrfbdy, zero ``exch_h`` and seeds as the reference,
 so both packages start from the same state and draw the same streams.
 
-    model, state = build_cares_shape(72, 72, 24, device="cuda")
+    model, state = build_cares_shape(72, 72, 24)
     for _ in range(n):
         state = model(state)
 """
@@ -23,10 +23,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from wrf_partmc_tpu.config import (BoundaryConfig, Config, DomainConfig,
-                                   DynamicsConfig, PartmcConfig, validate_config)
-
-from .entry import EMISSION_SOURCES
+from .config import (BoundaryConfig, Config, DomainConfig, DynamicsConfig,
+                     PartmcConfig, validate_config)
+from .entry import EMISSION_SOURCES, require_device
 from .grid import make_grid
 from .models.coupled.bdy import make_bdy
 from .models.coupled.driver import CoupledModel, init_coupled
@@ -70,10 +69,12 @@ def cares_config(nx, ny, nz, n_part=100, cap=128, dt=30.0, chem_on=True) -> Conf
 
 
 def build_cares_shape(nx, ny, nz, n_part=100, cap=128, dt=30.0, chem_on=True,
-                      n_class_sources=6, device="cpu"):
+                      n_class_sources=6, device="cuda"):
     """Build the CARES-shaped coupled model and its initial state on
-    ``device``.  Returns ``(CoupledModel, CoupledState)``."""
-    cfg =cares_config(nx, ny, nz, n_part, cap, dt, chem_on)
+    ``device`` (the card unless the caller names another; raises on a host
+    without CUDA).  Returns ``(CoupledModel, CoupledState)``."""
+    require_device(device)
+    cfg = cares_config(nx, ny, nz, n_part, cap, dt, chem_on)
     ad = make_aero_data(device=device)
     gd = make_gas_data_cbmz(device=device) if chem_on else make_gas_data(device=device)
     vf = np.zeros(ad.n_spec)

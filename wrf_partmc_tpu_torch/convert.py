@@ -8,6 +8,8 @@ counterparts, matching classes by name and fields by name.  The input is
 any object with the JAX field names holding numpy arrays (for example
 ``jax.tree.map(np.asarray, state)``); nothing here imports jax.
 ``to_numpy`` returns the port's dataclasses with numpy leaves.
+``config_from_reference`` rebuilds the port's ``Config`` from the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .config import Config
 from .grid import Grid
 from .models.coupled.bdy import BdyData
 from .models.coupled.driver import CoupledState
@@ -84,3 +87,24 @@ def from_numpy(tree, device="cpu"):
 def to_numpy(tree):
     """The port's dataclasses with every tensor leaf as a numpy array."""
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def config_from_reference(ref, cls=Config):
+    """The port's ``cls`` (a ``Config`` by default) with the values of
+    ``ref``, any dataclass tree with the same field names (the JAX
+    package's ``Config``); nested groups are rebuilt as the port's own
+    classes.  Raises if either tree has a field the other lacks."""
+    ours = {f.name for f in dataclasses.fields(cls)}
+    theirs = {f.name for f in dataclasses.fields(ref)}
+    if ours != theirs:
+        raise ValueError(f"config_from_reference: {cls.__name__} fields differ: "
+                         f"port only {sorted(ours - theirs)}, reference only "
+                         f"{sorted(theirs - ours)}")
+    default = cls()
+    kw = {}
+    for name in ours:
+        v = getattr(ref, name)
+        if dataclasses.is_dataclass(v):
+            v = config_from_reference(v, type(getattr(default, name)))
+        kw[name] = v
+    return cls(**kw)

@@ -6,9 +6,13 @@ both packages start from the same state and draw the same random streams.
 With ``chem_on`` the chemistry macro-step runs the 77-species CBM-Z +
 MOSAIC step over an urban trace-gas background.
 
-    model, state = build(40, 40, 10, n_part=1000, cap=1280, device="cuda")
+    model, state = build(40, 40, 10, n_part=1000, cap=1280)
     for _ in range(n):
         state = model(state)
+
+The model is built on the card unless the caller names another device
+(``device="cpu"``, as the CPU tests do); on a host without CUDA the
+default raises instead of running on the CPU.
 """
 
 from __future__ import annotations
@@ -18,8 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from wrf_partmc_tpu.config import DomainConfig, PartmcConfig, uniform_test_config
-
+from .config import DomainConfig, PartmcConfig, uniform_test_config
 from .grid import make_grid
 from .models.coupled.driver import CoupledModel, init_coupled
 from .models.coupled.init import populate_from_dist
@@ -77,10 +80,18 @@ def make_config(nx, ny, nz, n_part, cap, everything_on=True, chem_dt=60.0,
     return cfg
 
 
+def require_device(device) -> None:
+    """Raise when ``device`` is a CUDA device and this host has none."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} asked for, but no CUDA device is "
+                           "available; pass device=\"cpu\" to run on the CPU")
+
+
 def build(nx=12, ny=12, nz=4, n_part=16, cap=48, everything_on=True,
-          chem_on=False, chem_dt=60.0, n_sources=None, device="cpu"):
+          chem_on=False, chem_dt=60.0, n_sources=None, device="cuda"):
     """Build the coupled model and its initial state on ``device``.
     Returns ``(CoupledModel, CoupledState)``."""
+    require_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False   # full-f32 einsums/matmuls
     torch.backends.cudnn.allow_tf32 = False
     cfg = make_config(nx, ny, nz, n_part, cap, everything_on, chem_dt, chem_on)

@@ -12,8 +12,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from wrf_partmc_tpu import constants as c
-from wrf_partmc_tpu.config import Config
+from . import constants as c
+from .config import Config
 
 
 @dataclass(frozen=True)

@@ -16,8 +16,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from wrf_partmc_tpu.config import Config
-
+from ...config import Config
 from ...grid import Grid
 from ..dycore.state import DycoreState
 

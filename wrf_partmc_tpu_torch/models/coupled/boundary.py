@@ -15,8 +15,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from wrf_partmc_tpu.config import Config
-
+from ...config import Config
 from ...grid import Grid
 from ..dycore.state import DycoreState
 from ..partmc.aero_data import AeroData

@@ -32,9 +32,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from wrf_partmc_tpu import constants as c
-from wrf_partmc_tpu.config import Config
-
+from ... import constants as c
+from ...config import Config
 from ...grid import Grid
 from ...ops.stencil import AXIS_X, AXIS_Y, shift
 from ...ops.vdiff import vertical_diffusion_state

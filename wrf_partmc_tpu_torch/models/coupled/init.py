@@ -3,8 +3,7 @@
 
 from __future__ import annotations
 
-from wrf_partmc_tpu.config import Config
-
+from ...config import Config
 from ...grid import Grid
 from ..partmc.aero_data import AeroData
 from ..partmc.aero_state import AeroState, fill_fresh

@@ -20,8 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from wrf_partmc_tpu.config import Config
-
+from ...config import Config
 from ...grid import Grid
 from ...ops.advection import OutflowProbs
 from ...ops.place import gather_rows, scatter_rows

@@ -14,9 +14,8 @@ from dataclasses import dataclass
 
 import torch
 
-from wrf_partmc_tpu import constants as c
-from wrf_partmc_tpu.config import Config
-
+from ... import constants as c
+from ...config import Config
 from ...grid import Grid
 from ...ops.advection import face_fluxes, flux_divergence
 from ...ops.stencil import AXIS_X, AXIS_Y, shift

@@ -5,8 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from wrf_partmc_tpu.config import Config
-
+from ...config import Config
 from ...grid import Grid
 from .state import DycoreState, replace, zero_dycore_state
 

@@ -12,8 +12,7 @@ from dataclasses import dataclass
 
 import torch
 
-from wrf_partmc_tpu.config import Config
-
+from ...config import Config
 from ...grid import Grid
 from ...ops.advection import OutflowProbs
 from ...ops.stencil import AXIS_X, AXIS_Y, shift

@@ -24,7 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from wrf_partmc_tpu import constants as c
+from ... import constants as c
 
 # ---------------------------------------------------------------------------
 # The 77-species gas registry (names exactly as Registry/registry.chem:3986,

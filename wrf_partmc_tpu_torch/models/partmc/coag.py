@@ -13,8 +13,7 @@ import dataclasses
 
 import torch
 
-from wrf_partmc_tpu import constants as c
-
+from ... import constants as c
 from ...ops.place import gather_rows
 from ...utils import rng
 from .aero_data import AeroData, vol_to_diam

@@ -15,8 +15,7 @@ import dataclasses
 
 import torch
 
-from wrf_partmc_tpu import constants as c
-
+from ... import constants as c
 from ...utils.at import set_at
 from .aero_data import AeroData, diam_to_vol, particle_volume, solute_kappa, vol_to_diam
 from .aero_state import AeroState

@@ -8,8 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from wrf_partmc_tpu import constants as c
-
+from ... import constants as c
 from .coag import cunningham_slip
 from .env_state import EnvState
 

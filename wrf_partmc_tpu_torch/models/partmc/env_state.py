@@ -7,7 +7,7 @@ from dataclasses import dataclass
 
 import torch
 
-from wrf_partmc_tpu import constants as c
+from ... import constants as c
 
 
 @dataclass(frozen=True)

@@ -16,8 +16,7 @@ import dataclasses
 
 import torch
 
-from wrf_partmc_tpu import constants as c
-
+from ... import constants as c
 from ...utils.at import add_at
 from .aero_data import AeroData
 from .aero_state import AeroState

@@ -10,8 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from wrf_partmc_tpu import constants as c
-
+from ... import constants as c
 from ...utils.at import add_at, set_at
 from .aero_data import AeroData, diam_to_vol
 from .aero_state import AeroState, add_particles

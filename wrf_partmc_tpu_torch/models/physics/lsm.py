@@ -18,8 +18,7 @@ from dataclasses import dataclass
 
 import torch
 
-from wrf_partmc_tpu import constants as c
-
+from ... import constants as c
 from ...ops.tridiag import solve as tridiag_solve
 from .landuse import DEFAULT_ISLTYP, DEFAULT_IVGTYP, noah_params, soil_params
 from .thermo import saturation_mixing_ratio

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from wrf_partmc_tpu import constants as c
+from ... import constants as c
 
 
 def sat_mixing_ratio_ice(temp, pres):

@@ -17,8 +17,7 @@ import dataclasses
 
 import torch
 
-from wrf_partmc_tpu import constants as c
-
+from ... import constants as c
 from ...grid import Grid
 from ..dycore.state import DycoreState, temperature, total_pressure
 from .microphysics import _sediment, sat_mixing_ratio_ice

@@ -13,8 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from wrf_partmc_tpu import constants as c
-
+from ... import constants as c
 from ...ops.tridiag import solve as tridiag_solve
 
 A1 = 0.92

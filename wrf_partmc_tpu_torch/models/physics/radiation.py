@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from wrf_partmc_tpu import constants as c
+from ... import constants as c
 
 SOLAR_CONST = 1361.0          # [W m-2]
 # solar spectral weights of the 4 coupled aerosol bands (0.3/0.4/0.6/1.0 um)

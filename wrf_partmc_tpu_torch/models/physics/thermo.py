@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from wrf_partmc_tpu import constants as c
+from ... import constants as c
 
 
 def saturation_vapor_pressure(temp):

@@ -1,9 +1,10 @@
 """Build and bind the port's hand-written CUDA kernels.
 
 The sources in ``wrf_partmc_tpu_torch/csrc/*.cu`` expose a plain C
-interface and are compiled at first use, with ``nvcc`` for ``sm_90a``, into
-one shared library under ``build/kernels/`` at the root of the checkout
-(git-ignored); the library is bound with ``ctypes``.  The file name carries
+interface and are compiled at first use, with one ``nvcc`` per source for
+``sm_90a``, all running at once, and linked into one shared library under
+``build/kernels/`` at the root of the checkout (git-ignored); the library
+is bound with ``ctypes``.  The file name carries
 a hash of the sources, so an edited source is rebuilt and a stale library is
 never loaded.  Nothing here runs at import time.
 """
@@ -25,7 +26,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -52,7 +53,8 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile every ``csrc/*.cu`` into one shared library (once per source
-    hash) and return its path."""
+    hash) and return its path.  Each source is compiled by its own ``nvcc``
+    process, all started together, and the objects are linked at the end."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256()
     for s in sources:
@@ -64,18 +66,28 @@ def build() -> Path:
         build_info.update(path=str(out), seconds=0.0, cached=True)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    build_info.update(path=str(out), seconds=seconds, cached=False,
-                      ptxas=proc.stderr)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{s.stem}.o" for s in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for s, o in zip(sources, objs)]
+        logs = [p.communicate() for p in procs]
+        failed = [(s.name, p.returncode, err) for s, p, (_, err) in zip(sources, procs, logs)
+                  if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name} ({rc}):\n{err}" for name, rc, err in failed))
+        lib_tmp = Path(tmp) / out.name
+        link = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                               "-o", str(lib_tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        os.replace(lib_tmp, out)
+    build_info.update(path=str(out), seconds=time.perf_counter() - t0, cached=False,
+                      ptxas="".join(err for _, err in logs))
     return out
 
 

@@ -6,15 +6,22 @@ Port of ``wrf_partmc_tpu/ops/place.py`` (public ``scatter_rows`` /
 slot.
 
 * ``scatter_rows(x, dst, L2)``: out[b, :, dst[b, i]] = x[b, :, i]
-  (dst == -1 drops the row; dst unique per batch; unwritten slots zero).
+  (dst == -1, or any dst outside [0, L2), drops the row; dst unique per
+  batch; unwritten slots zero).
 * ``gather_rows(x, src)``:      out[b, :, o] = x[b, :, src[b, o]]
-  (src == -1 yields a zero row; duplicate sources allowed).
+  (src == -1, or any src outside [0, L1), yields a zero row; duplicate
+  sources allowed).
+
+On indices in [-1, L) both match the JAX package's ``*_ref`` exactly.
 
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
 hand-written kernel (``csrc/place.cu``), which copies bit for bit.  The
 TPU's bf16x3 one-hot MXU path has no counterpart here: on Hopper these are
-plain indexed copies, bound by device memory: one read and one write of
-every moved float (see the note in ``csrc/place.cu``).
+indexed copies, bound by device memory, that build the scatter's output
+tile and hold the gather's input tile in shared memory, so device memory
+sees one coalesced pass on each side (see the note in ``csrc/place.cu``).
+The scatter's kernel writes every output slot, zeros included, so its
+output is allocated uninitialised.
 """
 
 from __future__ import annotations
@@ -25,23 +32,25 @@ from . import _cuda
 
 
 def scatter_rows_plain(x, dst, L2: int):
-    """Reference scatter with ``index_put_``: dropped rows (dst == -1) land
-    in a spare slot L2 that is cut off."""
+    """Reference scatter with ``index_put_``: dropped rows (dst outside
+    [0, L2)) land in a spare slot L2 that is cut off."""
     B, CH, L1 = x.shape
     out = x.new_zeros((B, L2 + 1, CH))
-    d = torch.where(dst >= 0, dst, L2).long()
+    d = torch.where((dst >= 0) & (dst < L2), dst, L2).long()
     bidx = torch.arange(B, device=x.device)[:, None].expand(B, L1)
     out.index_put_((bidx, d), x.transpose(1, 2))
     return out[:, :L2].transpose(1, 2).contiguous()
 
 
 def gather_rows_plain(x, src):
-    """Reference gather with ``torch.gather``; src == -1 gives zeros."""
+    """Reference gather with ``torch.gather``; src outside [0, L1) gives
+    zeros."""
     B, CH, L1 = x.shape
     L2 = src.shape[1]
     s = src.clamp(0, L1 - 1).long()[:, None, :].expand(B, CH, L2)
     rows = torch.gather(x, 2, s)
-    return torch.where((src >= 0)[:, None, :], rows, torch.zeros((), dtype=x.dtype, device=x.device))
+    valid = (src >= 0) & (src < L1)
+    return torch.where(valid[:, None, :], rows, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _check(name, x, idx, idx_len):
@@ -56,17 +65,17 @@ def _check(name, x, idx, idx_len):
                          f"{tuple(idx.shape)}")
     if not (x.is_contiguous() and idx.is_contiguous()):
         raise ValueError(f"{name}: payload and index must be contiguous")
-    # the kernel's grid: per cell one block of 128 threads per 128 index slots
-    if x.shape[0] * -(-idx_len // 128) > 2**31 - 1:
-        raise ValueError(f"{name}: {x.shape[0]} cells x {idx_len} slots exceed the "
-                         "launch grid (2^31 - 1 blocks of 128)")
+    # the kernel's 1-D grid holds at most one block per cell
+    if x.shape[0] > 2**31 - 1:
+        raise ValueError(f"{name}: {x.shape[0]} cells exceed the launch grid "
+                         "(2^31 - 1 blocks)")
 
 
 def scatter_rows_cuda(x, dst, L2: int):
     """Launch the CUDA row scatter (K2) on the current stream."""
     _check("scatter_rows", x, dst, x.shape[2])
     B, CH, L1 = x.shape
-    out = torch.zeros((B, CH, L2), dtype=torch.float32, device=x.device)
+    out = torch.empty((B, CH, L2), dtype=torch.float32, device=x.device)
     err = _cuda.lib().wpt_scatter_rows_f32(
         x.data_ptr(), dst.data_ptr(), out.data_ptr(), B, CH, L1, L2,
         _cuda.stream_ptr(x.device))
@@ -100,14 +109,14 @@ gather_rows_cuda.shapes = set()
 
 
 def scatter_rows(x, dst, L2: int):
-    """out[b, :, dst[b, i]] = x[b, :, i]; dst == -1 drops the row."""
+    """out[b, :, dst[b, i]] = x[b, :, i]; dst outside [0, L2) drops the row."""
     if x.is_cuda:
         return scatter_rows_cuda(x, dst, L2)
     return scatter_rows_plain(x, dst, L2)
 
 
 def gather_rows(x, src):
-    """out[b, :, o] = x[b, :, src[b, o]]; src == -1 yields a zero row."""
+    """out[b, :, o] = x[b, :, src[b, o]]; src outside [0, L1) yields a zero row."""
     if x.is_cuda:
         return gather_rows_cuda(x, src)
     return gather_rows_plain(x, src)
