@@ -7,11 +7,20 @@ Phases, each printed on its own line and each fatal on failure:
 
 1. the card: its name and power limit (nvidia-smi);
 2. build: compile the hand-written CUDA kernels from ``wrf_partmc_tpu_torch/csrc``;
-3. kernels: each kernel against its plain PyTorch version on the card, at the
-   shapes of the em_uniform main path, with its time, the plain version's,
-   the library call's (K2 ``torch.scatter``, K3 ``torch.gather``; none for
-   K1) and its bound (the least time for the bytes these inputs need at
-   3.35 TB/s, or for the operations at 67 TFLOP/s, whichever is larger);
+3. kernels: the launch floor (an empty kernel), then each kernel against
+   its plain PyTorch version on the card, at the shapes of the em_uniform
+   main path, with its time, its call time, the plain version's time, the
+   library call's (K1 ``torch.linalg.solve`` on the dense system, K2
+   ``torch.scatter``, K3 ``torch.gather``) and its bound (the least time
+   for the bytes these inputs need at 3.35 TB/s, or for the operations at
+   67 TFLOP/s, whichever is larger).  The call time of every kernel is the
+   host clock over many wrapper calls ending in a synchronize, per call.
+   The kernel times come from two methods: K1's is device time per launch
+   from a CUDA graph of 100 wrapper calls replayed between two events (the
+   replays read the same inputs, so below the 50 MB L2 they come from L2:
+   every K1 shape but the CARES vertical diffusion and gas solve); K2's and
+   K3's is the median of single wrapper calls between two events, host
+   work included;
 4. card against CPU: one coupled step at 12x12x4 on ``cuda`` and on ``cpu``
    from the same state;
 5. main path: the em_uniform coupled step at 40x40x10 cells, 1000 particles
@@ -38,7 +47,10 @@ Phases, each printed on its own line and each fatal on failure:
 
 After each of the paths 5, 7, 9 and 11, every kernel is held against its
 plain version at each argument shape that path launched it with and no
-earlier check held, with the same four times.  Paths 5 and 11 also keep
+earlier check held, with the same times.  K1 (``thomas_solve``: the
+acoustic, MYJ and Noah solves, and vertical diffusion's six fields in one
+launch) is held bit for bit against the plain recurrence field by field.
+Paths 5 and 11 also keep
 the index arrays their first transport and coagulation steps gave K2 and
 K3; after each, both kernels run on those indices (bit-exact against the
 plain version) with the share of rows that move, the times and the bound
@@ -68,6 +80,48 @@ class SmokeFailure(RuntimeError):
 def require(cond, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+def graph_ms(fn, calls: int = 100, reps: int = 5) -> float:
+    """Device time per call of ``fn()`` in ms: ``calls`` calls captured once
+    in a CUDA graph, replayed between two events (median of ``reps``
+    replays, after a warm-up), divided by ``calls``.  The host's work in
+    ``fn`` is not in it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        g.replay()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1) / calls)
+    del g
+    return statistics.median(times)
+
+
+def call_ms(fn, calls: int = 100) -> float:
+    """Host clock per call of ``fn()`` in ms over ``calls`` calls ending in
+    a synchronize (after a warm-up): what a caller waits for."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / calls
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
@@ -109,9 +163,12 @@ def phase_build():
     info = _cuda.build_info
     print(f"[build] {time.perf_counter() - t0:.3f} s total, nvcc "
           f"{info['seconds']:.3f} s, {os.path.relpath(info['path'], ROOT)}")
+    entry = "?"
     for line in info.get("ptxas", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] ptxas {line.strip()}")
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            print(f"[build] ptxas {entry}: {line.strip()}")
 
 
 def _rand_unique_dst(gen, C, L1, L2, drop_frac, device):
@@ -163,39 +220,120 @@ def bound(n_bytes: float, n_ops: float = 0.0):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def _coefs(gen, dl_s, d_s, du_s):
+    """Random diagonals: off-diagonals in [-1, 1), main diagonal
+    4 + |N(0, 1)|, so every column is diagonally dominant."""
+    import torch
+
+    off = lambda sh: 2.0 * torch.rand(sh, generator=gen, device="cuda") - 1.0
+    return off(dl_s), 4.0 + torch.randn(d_s, generator=gen, device="cuda").abs(), off(du_s)
+
+
+DENSE_LIMIT = 4e9           # bytes of the dense batch torch.linalg.solve may take
+
+
+def _dense(dl, d, du):
+    """The dense [m, n, n] matrices of [n, m] diagonals (dl[0], du[n-1]
+    dropped), or None above DENSE_LIMIT."""
+    import torch
+
+    n, m = d.shape
+    if 4.0 * m * n * n > DENSE_LIMIT:
+        return None
+    A = torch.zeros((m, n, n), device=d.device)
+    k = torch.arange(n, device=d.device)
+    A[:, k, k] = d.T
+    A[:, k[1:], k[:-1]] = dl[1:].T
+    A[:, k[:-1], k[1:]] = du[:-1].T
+    return A
+
+
+def library_ms(A, B, X):
+    """``torch.linalg.solve(A, B)`` (checked against X to 1e-4 of its
+    largest value), timed with events around 5 calls after a warm-up; None
+    where A is None."""
+    import torch
+
+    if A is None:
+        return None
+    X_l = torch.linalg.solve(A, B)
+    rel = float((X_l - X).abs().max()) / float(X.abs().max())
+    require(rel <= 1e-4, f"K1 library call disagrees: rel {rel}")
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(5):
+        torch.linalg.solve(A, B)
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / 5
+
+
+def _columns(f, n, m):
+    """A field [n, *cols] or [L, n, *cols] as [m, n, L]."""
+    return f.reshape(-1, n, m).permute(2, 1, 0)
+
+
 def check_thomas(gen, shapes):
-    """K1 against solve_scan on random inputs with the argument shapes
-    (dl, d, du, b): off-diagonals in [-1, 1), main diagonal 4 + |N(0, 1)|,
-    so every column is diagonally dominant; rel err <= 1e-5 of the largest
-    value.  The bound reads dl, d, du and b once and writes x once; its
-    operations are 9 per unknown (7 in the forward sweep, 2 back).  No
-    single PyTorch call solves a banded system, so library_ms is null."""
+    """K1 (``thomas_solve``, one launch for all the fields) against
+    ``solve_fields_scan`` (solve_scan field by field) on random inputs with
+    the argument shapes of a launch, (dl, d, du, fields, cols), bit for
+    bit.  The bound reads dl, d, du and every field once and writes every
+    solution once; its operations are 9 per unknown (7 in the forward
+    sweep, 2 back).  The library call is one ``torch.linalg.solve`` of the
+    dense [m, n, n] matrices against all the fields' columns as right-hand
+    sides [m, n, sum L] (assembled outside the timed window; null above
+    4 GB)."""
     import math
 
     import torch
 
     from wrf_partmc_tpu_torch.ops import tridiag
 
-    rnd = lambda sh: torch.randn(sh, generator=gen, device="cuda")
-    off = lambda sh: 2.0 * torch.rand(sh, generator=gen, device="cuda") - 1.0
-    dl_s, d_s, du_s, b_s = shapes
-    dl, du, b = off(dl_s), off(du_s), rnd(b_s)
-    d = 4.0 + rnd(d_s).abs()
-    x_k = tridiag.thomas_solve(dl, d, du, b)
-    x_p = tridiag.solve_scan(dl, d, du, b)
+    dl_s, d_s, du_s, f_s, cols = shapes
+    dl, d, du = _coefs(gen, dl_s, d_s, du_s)
+    fields = [torch.randn(s, generator=gen, device="cuda") for s in f_s]
+    run = lambda: tridiag.thomas_solve(dl, d, du, fields, cols)
+    xs = run()
+    refs = tridiag.solve_fields_scan(dl, d, du, fields)
     torch.cuda.synchronize()
-    err = float((x_k - x_p).abs().max())
-    rel = err / float(x_p.abs().max())
-    ms = cuda_ms(lambda: tridiag.thomas_solve(dl, d, du, b))
-    pms = cuda_ms(lambda: tridiag.solve_scan(dl, d, du, b))
-    n_b = math.prod(b_s)
-    bms, by = bound(4 * (sum(math.prod(s) for s in (dl_s, d_s, du_s)) + 2 * n_b), 9 * n_b)
-    print(f"[kernels] K1 thomas_solve rhs {list(b_s)} coefficients {list(d_s)}: "
-          f"max_abs_err {err:.3e} max_rel_err {rel:.3e} kernel {ms:.4f} ms plain "
-          f"{pms:.4f} ms bound {bms:.6f} ms ({by}) share {bms / ms:.3f}")
-    require(rel <= 1e-5, f"K1 at rhs {b_s} disagrees with plain: rel {rel}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None, bound_ms=bms,
-                bound_by=by)
+    err = max(float((x - r).abs().max()) for x, r in zip(xs, refs))
+    require(all(torch.equal(x, r) for x, r in zip(xs, refs)),
+            f"K1 at fields {f_s} not bit-exact: max abs err {err}")
+    n, m = d_s[0], math.prod(cols)
+    flat = lambda a: a.expand(n, *cols).reshape(n, m)
+    A = _dense(flat(dl), flat(d), flat(du))
+    B = torch.cat([_columns(f, n, m) for f in fields], dim=2)
+    X = torch.cat([_columns(x, n, m) for x in xs], dim=2)
+    res = dict(max_abs_err=err, ms=graph_ms(run), call_ms=call_ms(run),
+               plain_ms=graph_ms(lambda: tridiag.solve_fields_scan(dl, d, du, fields),
+                                 calls=20),
+               library_ms=library_ms(A, B, X))
+    del A, B, X
+    n_f = sum(math.prod(s) for s in f_s)
+    res["bound_ms"], res["bound_by"] = bound(
+        4 * (sum(math.prod(s) for s in (dl_s, d_s, du_s)) + 2 * n_f), 9 * n_f)
+    lib = "null" if res["library_ms"] is None else f"{res['library_ms']:.4f} ms"
+    print(f"[kernels] K1 thomas_solve coefficients {list(d_s)} fields "
+          + " ".join(str(list(s)) for s in f_s)
+          + f": max_abs_err {err:.3e}; device {res['ms']:.4f} ms, call {res['call_ms']:.4f} "
+          f"ms, plain {res['plain_ms']:.4f} ms, library {lib}, bound {res['bound_ms']:.6f} ms "
+          f"({res['bound_by']}), share {res['bound_ms'] / res['ms']:.3f}")
+    return res
+
+
+def launch_floor():
+    """Device and call time of one launch of an empty kernel through the
+    same binding, by the methods K1 is timed with."""
+    from wrf_partmc_tpu_torch.ops import _cuda
+
+    def empty():
+        _cuda.check(_cuda.lib().wpt_empty_kernel(_cuda.stream_ptr(0)), "empty kernel")
+    res = dict(ms=graph_ms(empty), call_ms=call_ms(empty))
+    print(f"[kernels] launch floor (empty kernel): device {res['ms']:.4f} ms, call "
+          f"{res['call_ms']:.4f} ms")
+    return res
 
 
 def scatter_bound(x, dst, L2):
@@ -244,14 +382,15 @@ def time_scatter(x, dst, L2, label):
             f"K2 library call {label} disagrees")
     del out_l
     ms = cuda_ms(lambda: place.scatter_rows_cuda(x, dst, L2))
+    cms = call_ms(lambda: place.scatter_rows_cuda(x, dst, L2), calls=20)
     pms = cuda_ms(lambda: place.scatter_rows_plain(x, dst, L2))
     lms = cuda_ms(lambda: torch.scatter(zeros, 2, idx, x))
     (bms, by), share = scatter_bound(x, dst, L2)
     print(f"[kernels] K2 scatter_rows {label}: bit-exact, rows moved {share:.4f}; kernel "
-          f"{ms:.4f} ms plain {pms:.4f} ms library {lms:.4f} ms bound {bms:.4f} ms "
-          f"({by}) share of bound {bms / ms:.3f}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
-                bound_by=by, moved=share)
+          f"{ms:.4f} ms call {cms:.4f} ms plain {pms:.4f} ms library {lms:.4f} ms bound "
+          f"{bms:.4f} ms ({by}) share of bound {bms / ms:.3f}")
+    return dict(max_abs_err=err, ms=ms, call_ms=cms, plain_ms=pms, library_ms=lms,
+                bound_ms=bms, bound_by=by, moved=share)
 
 
 def time_gather(x, src, label):
@@ -277,15 +416,16 @@ def time_gather(x, src, label):
     require(torch.equal(torch.gather(xp, 2, idx), out_p), f"K3 library call {label} disagrees")
     del out_p
     ms = cuda_ms(lambda: place.gather_rows_cuda(x, src))
+    cms = call_ms(lambda: place.gather_rows_cuda(x, src), calls=20)
     pms = cuda_ms(lambda: place.gather_rows_plain(x, src))
     lms = cuda_ms(lambda: torch.gather(xp, 2, idx))
     (bms, by), share = gather_bound(x, src)
     print(f"[kernels] K3 gather_rows {label}: bit-exact, source rows read {share:.4f}, "
           f"output rows filled {float(((src >= 0) & (src < L1)).float().mean()):.4f}; "
-          f"kernel {ms:.4f} ms plain {pms:.4f} ms library {lms:.4f} ms bound {bms:.4f} ms "
-          f"({by}) share of bound {bms / ms:.3f}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
-                bound_by=by, moved=share)
+          f"kernel {ms:.4f} ms call {cms:.4f} ms plain {pms:.4f} ms library {lms:.4f} ms "
+          f"bound {bms:.4f} ms ({by}) share of bound {bms / ms:.3f}")
+    return dict(max_abs_err=err, ms=ms, call_ms=cms, plain_ms=pms, library_ms=lms,
+                bound_ms=bms, bound_by=by, moved=share)
 
 
 def check_scatter(gen, shapes):
@@ -322,13 +462,27 @@ def hold(kernels: dict, gen, name: str, shapes):
     """Hold kernel ``name`` against its plain version at ``shapes``; the
     kernels line reports the largest error of all its checks."""
     res = CHECKS[name](gen, shapes)
-    kernels[name]["max_abs_err"] = max(kernels[name].get("max_abs_err", 0.0),
-                                       res["max_abs_err"])
+    k = kernels[name]
+    k["max_abs_err"] = max(k.get("max_abs_err", 0.0), res["max_abs_err"])
     CHECKED[name].add(shapes)
     return res
 
 
-KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+KEYS = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+
+
+def k1_shapes(coef, fields, cols=None):
+    """K1's argument shapes (dl, d, du, fields, cols) as ``thomas_solve``
+    records them: coefficients ``coef`` for all three diagonals."""
+    return (coef, coef, coef, tuple(fields), tuple(coef[1:] if cols is None else cols))
+
+
+def vdiff_shapes(nz, ny, nx, moist, chem):
+    """K1's shapes in vertical diffusion's launch: u, v, theta', moist,
+    chem and tke at nz levels over ny x nx columns, moist and chem stacked
+    ``moist`` and ``chem`` deep."""
+    one = (nz, ny, nx)
+    return k1_shapes(one, (one, one, one, (moist, *one), (chem, *one), one))
 
 
 def phase_kernels(kernels: dict):
@@ -337,11 +491,17 @@ def phase_kernels(kernels: dict):
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # K1: acoustic W'' solve (nz-1 = 9 faces x 1600 columns) and the vdiff
-    # solve of the 32 chem tracers ([10, 32, 40, 40] rhs, [10, 1, 40, 40]
-    # coefficients read by column modulus)
-    k1 = [hold(kernels, gen, "thomas_solve", (c, c, c, b)) for c, b in
-          (((9, 40, 40), (9, 40, 40)), ((10, 1, 40, 40), (10, 32, 40, 40)))]
+    kernels["thomas_solve"]["launch_floor"] = launch_floor()
+    # K1: acoustic W'' solve (nz-1 = 9 faces x 1600 columns), the vdiff
+    # launch of the six fields (moist 3 and chem 32 deep) on 10 levels, and
+    # the CARES gases [24, 77, 72, 72] as one field against [24, 1, 72, 72]
+    # coefficients read by column modulus (how vertical diffusion solved
+    # them before its fields shared one launch)
+    a = (9, 40, 40)
+    k1 = [hold(kernels, gen, "thomas_solve", k1_shapes(a, [a])),
+          hold(kernels, gen, "thomas_solve", vdiff_shapes(10, 40, 40, 3, 32)),
+          hold(kernels, gen, "thomas_solve",
+               k1_shapes((24, 1, 72, 72), [(24, 77, 72, 72)], (77, 72, 72)))]
     # K2/K3 at full width: C = 16000 cells, CH = 33 channels, P = 1280
     C, CH, P, F1, AB = 16000, 33, 1280, 1120, 400
     k2 = [hold(kernels, gen, "scatter_rows", ((C, CH, L1), L2))
@@ -359,7 +519,7 @@ def phase_path_shapes(label: str, kernels: dict, shapes: dict):
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    new = {k: sorted(v - CHECKED[k]) for k, v in shapes.items()}
+    new = {k: sorted(v - CHECKED[k], key=repr) for k, v in shapes.items()}
     print(f"[kernels] {label}: shapes launched "
           + json.dumps({k: len(v) for k, v in shapes.items()})
           + ", not yet held " + json.dumps({k: len(v) for k, v in new.items()}))
@@ -439,10 +599,14 @@ def drive(model, state, n_timed: int):
     return (state, warm, dt, *read_counts())
 
 
-def require_launched(kernels: dict, key: str, launches: dict, path: str):
-    for k, n in launches.items():
-        require(n > 0, f"kernel {k} was not launched on the {path}")
-        kernels[k][key] = n
+def require_launched(kernels: dict, key: str, launches: dict, path: str, steps: int):
+    """Every kernel launched on the path; its count is printed with its
+    launches a step over the ``steps``."""
+    for name, rec in kernels.items():
+        rec[key] = launches[name]
+        require(rec[key] > 0, f"{name} was not launched on the {path}")
+    print(f"[launches] {path}, {steps} steps: " + ", ".join(
+        f"{name} {rec[key]} ({rec[key] / steps:g} a step)" for name, rec in kernels.items()))
 
 
 def phase_main_path(kernels: dict, n_timed: int = 6):
@@ -474,7 +638,7 @@ def phase_main_path(kernels: dict, n_timed: int = 6):
     require(bool(torch.isfinite(state.aero.num).all()), "num not finite")
     require(tuple(state.aero.num.shape) == (10, 40, 40, 1280), "bad num shape")
     require(alive > 0, "no particle alive")
-    require_launched(kernels, "launches", launches, "main path")
+    require_launched(kernels, "launches", launches, "main path", n_timed + 1)
     print(f"[main] kernel launches by caller: {json.dumps(by_caller)}")
     return shapes, captured
 
@@ -594,7 +758,7 @@ def phase_chem_main_path(kernels: dict, n_timed: int = 30):
     require(tuple(state.gas.shape) == (10, 40, 40, 77), "bad gas shape")
     require(alive > 0, "no particle alive")
     require(all(v == v and v >= 0.0 for v in means.values()), f"bad means {means}")
-    require_launched(kernels, "launches_chem_on", launches, "chem-on main path")
+    require_launched(kernels, "launches_chem_on", launches, "chem-on main path", n_timed + 1)
     return model, state, shapes
 
 
@@ -689,7 +853,7 @@ def phase_40class(kernels: dict):
     require(bool(torch.isfinite(state.aero.num).all()), "40-class: num not finite")
     require(bool(torch.isfinite(state.dyn.num_conc).all()), "40-class: num_conc not finite")
     require(alive > 0, "40-class: no particle alive")
-    require_launched(kernels, "launches_40class", launches, "40-class path")
+    require_launched(kernels, "launches_40class", launches, "40-class path", 2)
     return shapes
 
 
@@ -768,7 +932,7 @@ def phase_cares_path(kernels: dict, n_timed: int = 20):
     require(state.step == n_timed + 1, "CARES path: step count")
     require(alive > 0, "CARES path: no particle alive")
     require(all(v == v and v >= 0.0 for v in means.values()), f"bad means {means}")
-    require_launched(kernels, "launches_cares", launches, "CARES path")
+    require_launched(kernels, "launches_cares", launches, "CARES path", n_timed + 1)
     print(f"[cares] kernel launches by caller: {json.dumps(by_caller)}")
     for caller, n in by_caller.items():
         require(n > 0, f"CARES path: no kernel launch from {caller}")
@@ -850,7 +1014,7 @@ def _free():
 def main() -> int:
     sys.path.insert(0, ROOT)
     try:
-        import torch  # noqa: F401
+        import torch
 
         import wrf_partmc_tpu_torch  # noqa: F401
     except ImportError as e:
@@ -892,8 +1056,6 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
-    import torch
-
     print(json.dumps({"kernels": [dict(name=k, **v) for k, v in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

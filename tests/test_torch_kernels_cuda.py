@@ -6,8 +6,12 @@ plain versions against the JAX package instead).
 
 K2/K3 are copies and must be bit-exact, at every layout their launch plan
 takes (whole cells in groups, channel tiles, bulk-copied and plainly
-loaded tiles); K1 performs the plain recurrence's
-float32 operations without FMA contraction and is held at 1e-6 relative.
+loaded tiles).  K1 performs the plain recurrence's float32 operations in
+its order without FMA contraction, so it too must be bit-exact, at every
+level bucket (registers for n <= 32, the shared-memory window above, and
+a column longer than one window) and for several strided fields per
+launch.  Outputs are allocated over NaN junk, so a slot a kernel misses
+shows.
 """
 
 import pytest
@@ -39,6 +43,69 @@ def test_thomas_kernel_matches_plain(cuda, cshape, bshape):
     assert tridiag.thomas_solve.launches == before + 1
     ref = tridiag.solve_scan(dl, d, du, b)
     torch.testing.assert_close(x, ref, rtol=1e-6, atol=1e-7)
+
+
+def _system(g, cshape, cuda):
+    dl = torch.randn(cshape, generator=g, device=cuda)
+    du = torch.randn(cshape, generator=g, device=cuda)
+    d = 4.0 + torch.randn(cshape, generator=g, device=cuda).abs()
+    return dl, d, du
+
+
+# the levels of every path (4 Noah, 9/10 em_uniform, 23/24 CARES), the
+# bucket edges, the full CARES grid's 65 and a column longer than one
+# shared-memory window (96 levels)
+LEVELS = [1, 2, 4, 9, 10, 17, 23, 24, 25, 32, 33, 65, 200]
+
+
+@pytest.mark.parametrize("n", LEVELS)
+@pytest.mark.parametrize("broadcast", [False, True])
+def test_thomas_kernel_bit_exact(cuda, n, broadcast):
+    """[n, ny, nx] coefficients, or [n, 1, ny, nx] against [n, L, ny, nx]."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    cshape, bshape = ((n, 1, 9, 13), (n, 5, 9, 13)) if broadcast else ((n, 9, 13),) * 2
+    dl, d, du = _system(g, cshape, cuda)
+    b = torch.randn(bshape, generator=g, device=cuda)
+    _junk_then_empty(bshape, cuda)
+    before = tridiag.thomas_solve.launches
+    x = tridiag.solve(dl, d, du, b)
+    assert tridiag.thomas_solve.launches == before + 1
+    assert torch.equal(x, tridiag.solve_scan(dl, d, du, b))
+
+
+# (n, field shapes): one field; vertical diffusion's six at the em_uniform
+# and CARES levels; eight of mixed L with a transposed stack and a
+# level-sliced view, at a register bucket and at the window
+FIELDS = [(10, ["3"]),
+          (10, ["1", "1", "1", "3", "32", "1"]),
+          (24, ["1", "1", "1", "10", "77", "1"]),
+          (9, ["1", "2", "T3", "S", "5", "1", "4", "1"]),
+          (65, ["1", "2", "T3", "S", "5", "1", "4", "1"])]
+
+
+def _field(g, kind, n, cols, cuda):
+    if kind == "T3":
+        return torch.randn((n, 3, *cols), generator=g, device=cuda).transpose(0, 1)
+    if kind == "S":
+        return torch.randn((n + 2, *cols), generator=g, device=cuda)[1:n + 1]
+    L = int(kind)
+    shape = (n, *cols) if L == 1 else (L, n, *cols)
+    return torch.randn(shape, generator=g, device=cuda)
+
+
+@pytest.mark.parametrize("n,kinds", FIELDS)
+def test_solve_fields_bit_exact(cuda, n, kinds):
+    g = torch.Generator(device=cuda).manual_seed(len(kinds))
+    cols = (9, 13)
+    dl, d, du = _system(g, (n, *cols), cuda)
+    fields = [_field(g, k, n, cols, cuda) for k in kinds]
+    for f in fields:
+        _junk_then_empty(f.shape, cuda)
+    before = tridiag.thomas_solve.launches
+    xs = tridiag.solve_fields(dl, d, du, fields)
+    assert tridiag.thomas_solve.launches == before + 1
+    for x, ref in zip(xs, tridiag.solve_fields_scan(dl, d, du, fields)):
+        assert x.is_contiguous() and torch.equal(x, ref)
 
 
 def _unique_dst(g, B, L1, L2, drop, cuda):
@@ -146,4 +213,12 @@ def test_wrappers_refuse_bad_inputs(cuda):
         place.gather_rows_cuda(x.transpose(1, 2), torch.zeros((2, 3), dtype=torch.int32,
                                                               device=cuda))
     with pytest.raises(ValueError):
-        tridiag.thomas_solve(*(torch.ones((4, 3), dtype=torch.float64, device=cuda),) * 4)
+        w = torch.ones((4, 3), dtype=torch.float64, device=cuda)
+        tridiag.thomas_solve(w, w, w, [w])
+    c = torch.ones((4, 3), device=cuda)
+    with pytest.raises(ValueError):
+        tridiag.thomas_solve(c, c, c, [c] * (tridiag.MAX_FIELDS + 1))
+    with pytest.raises(ValueError):
+        tridiag.thomas_solve(c, c, c, [c, torch.ones((4, 3))])
+    with pytest.raises(ValueError):
+        tridiag.thomas_solve(c, c, c, [torch.ones((3, 4), device=cuda).t()])

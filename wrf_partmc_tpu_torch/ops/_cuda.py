@@ -32,8 +32,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    "wpt_thomas_solve_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _LL, _LL,
-                             _LL, _LL, _P],
+    "wpt_thomas_fields_f32": [_P, _P, _P, _P, _P],
+    "wpt_empty_kernel": [_P],
     "wpt_scatter_rows_f32": [_P, _P, _P, _LL, _I, _I, _I, _P],
     "wpt_gather_rows_f32": [_P, _P, _P, _LL, _I, _I, _I, _P],
 }

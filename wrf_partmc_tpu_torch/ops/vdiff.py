@@ -2,7 +2,10 @@
 
 Port of ``wrf_partmc_tpu/ops/vdiff.py``: backward-Euler column solve
 (I - dt D) f^{n+1} = f^n with zero-flux ends, one tridiagonal system per
-column through ``ops.tridiag.solve`` (kernel K1 on CUDA).
+column.  The six fields share one set of coefficients, so they go through
+``ops.tridiag.solve_fields`` together: one launch of kernel K1 on CUDA,
+each field read in its own layout ([nz, ny, nx] or [L, nz, ny, nx]) with
+no transpose.
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ import dataclasses
 import torch
 
 from ..grid import Grid
-from .tridiag import solve as tridiag_solve
+from .tridiag import solve_fields
 
 
 def vdiff_coeffs(kv_face, grid: Grid, rho_b, dt):
@@ -32,28 +35,11 @@ def vdiff_coeffs(kv_face, grid: Grid, rho_b, dt):
     return dl, d, du
 
 
-def diffuse_column(f, dl, d, du):
-    """Apply the implicit solve to f: [..., nz, ny, nx] (any leading dims).
-    Leading dims become a column batch [nz, L, ny, nx] against [nz, 1, ny,
-    nx] coefficients (the kernel reads them by column modulus)."""
-    if f.dim() == 3:
-        return tridiag_solve(dl, d, du, f)
-    lead = f.shape[:-3]
-    nz, ny, nx = f.shape[-3:]
-    f2 = f.reshape(-1, nz, ny, nx).transpose(0, 1).contiguous()
-    x = tridiag_solve(dl[:, None], d[:, None], du[:, None], f2)
-    return x.transpose(0, 1).reshape(*lead, nz, ny, nx)
+FIELDS = ("u", "v", "theta_p", "moist", "chem", "tke")
 
 
 def vertical_diffusion_state(dyn, kv_face, grid: Grid, rho_b, dt):
     """Mix u, v, theta', moisture, chem and TKE down each column."""
     dl, d, du = vdiff_coeffs(kv_face, grid, rho_b, dt)
-    return dataclasses.replace(
-        dyn,
-        u=diffuse_column(dyn.u, dl, d, du),
-        v=diffuse_column(dyn.v, dl, d, du),
-        theta_p=diffuse_column(dyn.theta_p, dl, d, du),
-        moist=diffuse_column(dyn.moist, dl, d, du),
-        chem=diffuse_column(dyn.chem, dl, d, du),
-        tke=diffuse_column(dyn.tke, dl, d, du),
-    )
+    out = solve_fields(dl, d, du, [getattr(dyn, k) for k in FIELDS])
+    return dataclasses.replace(dyn, **dict(zip(FIELDS, out)))
