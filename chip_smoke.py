@@ -43,9 +43,23 @@ Phases, each printed on its own line and each fatal on failure:
 11. the CARES path: 72x72x24, 100 particles per cell (capacity 128),
     dt 30 s, chem_dt 300 s: a warm-up step (step 0, chemistry) and 20
     timed steps (two chemistry macro-steps), with every kernel's launch
-    count, overall and per caller.
+    count, overall and per caller;
+12. card against CPU, the diagnostics: ``diagnostics.process`` (advanced
+    on, 100 bins) at 12x12x4 with one cell emptied;
+13. the ideal cases: each of ``run.CASES`` built by ``run.build_model`` on
+    ``cuda`` (20x20x10, 100 per cell) and stepped twice;
+14. the runner path: ``run.main`` on a namelist written under ``build/``
+    at the em_uniform width (40x40x10, 1000 per cell, capacity 1280, live
+    dynamics, emission, coagulation, deposition, transport, removal
+    counters and coagulation records), 12 steps with history and auxhist2
+    every 6 and npz and NetCDF restarts at step 6: the files against the
+    JAX writer's variables and shapes, chi in [0, 1], the counters finite,
+    the aero_removed rows, the section timers, the same model stepped bare,
+    and each writer timed alone with its file's size;
+15. resume: from the step-6 npz and NetCDF restarts for 6 steps each, each
+    final state bit-equal to the continuous run's.
 
-After each of the paths 5, 7, 9 and 11, every kernel is held against its
+After each of the paths 5, 7, 9, 11, 13 and 14, every kernel is held against its
 plain version at each argument shape that path launched it with and no
 earlier check held, with the same times.  K1 (``thomas_solve``: the
 acoustic, MYJ and Noah solves, and vertical diffusion's six fields in one
@@ -1002,6 +1016,373 @@ def phase_path_indices(label: str, captured: dict):
         torch.cuda.empty_cache()
 
 
+DIAG_FIELDS = ("num_dist", "mass_dist", "spec_mass", "num_conc", "chi", "d_alpha",
+               "d_gamma", "chi_sub", "ccn", "pm1", "pm25", "pm10", "b_scat", "b_abs",
+               "b_scat_mix", "b_abs_mix", "ccn_mix")
+
+
+def phase_diag_card_vs_cpu():
+    """The gridded diagnostics (``diagnostics.process``, advanced on) on the
+    card against the CPU, on the 12x12x4 em_uniform state with its particles
+    made of five species and one cell emptied: every field to rtol 1e-4 with a floor of 1e-6 of its largest
+    value (last-ulp transcendentals, and float atomics in the card's binning
+    sums), NaN exactly where the CPU has NaN (the empty cell's D_alpha), chi
+    in [0, 1]."""
+    import dataclasses
+
+    import torch
+
+    from wrf_partmc_tpu_torch.entry import build
+    from wrf_partmc_tpu_torch.models.coupled.driver import make_env
+    from wrf_partmc_tpu_torch.models.partmc.bin_grid import make_bin_grid
+    from wrf_partmc_tpu_torch.models.partmc.diagnostics import process
+    from wrf_partmc_tpu_torch.utils.tree import tree_map
+
+    model, state = build(12, 12, 4, n_part=16, cap=48, device="cpu")
+    a, ad = state.aero, model.aero_data
+    # the SO4 particles' volume spread over five species from a seed, SO4
+    # at least half (solute kappa >= 0.3, where the critical
+    # supersaturations are well conditioned), so chi spans (0, 1)
+    gen = torch.Generator().manual_seed(3)
+    names = ("SO4", "NO3", "NH4", "OC", "BC")
+    w = torch.rand((len(names), *a.num.shape), generator=gen)
+    w[0] += w.sum(0)
+    w = w / w.sum(0)
+    vol = a.vol.clone()
+    total = a.vol.sum(-2)
+    for i, name in enumerate(names):
+        vol[..., ad.spec_by_name(name), :] = total * w[i]
+    empty = torch.zeros(a.num.shape[:-1], dtype=torch.bool)
+    empty[1, 5, 7] = True
+    aero = dataclasses.replace(a, num=torch.where(empty[..., None], 0.0, a.num),
+                               vol=torch.where(empty[..., None, None], 0.0, vol))
+    env = make_env(state.dyn, model.grid, model.cfg, state.step)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pc = model.cfg.partmc
+        bg = make_bin_grid(pc.num_bins, pc.bin_d_min, pc.bin_d_max, device=dev)
+        on = lambda x: tree_map(lambda t: t.to(dev), x)
+        out[dev] = tree_map(lambda t: t.cpu(), process(
+            on(aero), on(model.aero_data), on(env), bg, advanced=True))
+    worst = {}
+    for name in DIAG_FIELDS:
+        g, c = getattr(out["cuda"], name), getattr(out["cpu"], name)
+        require(torch.equal(torch.isnan(g), torch.isnan(c)), f"diagnostics: {name} NaN differ")
+        fin = ~torch.isnan(c)
+        atol = 1e-6 * float(c[fin].abs().max()) if bool(fin.any()) else 0.0
+        worst[name] = float(((g - c)[fin].abs() / (c[fin].abs() + atol + 1e-300)).max())
+        require(torch.allclose(g[fin], c[fin], rtol=1e-4, atol=atol),
+                f"diagnostics card vs CPU: {name} max rel {worst[name]}")
+    chi = out["cuda"].chi
+    require(bool(((chi >= 0) & (chi <= 1)).all()), "diagnostics: chi outside [0, 1]")
+    require(bool(torch.isnan(out["cuda"].d_alpha[1, 5, 7])) and float(chi[1, 5, 7]) == 1.0,
+            "diagnostics: the empty cell is not NaN D_alpha, chi 1")
+    require(float(chi.min()) < 0.99, "diagnostics: the mixed population gives chi 1")
+    print("[diag-card-vs-cpu] 12x12x4, 16/cell, 5 species, one empty cell, 100 bins, "
+          "advanced: max rel "
+          + " ".join(f"{k}={v:.1e}" for k, v in worst.items())
+          + f"; chi range [{float(chi.min()):.4f}, {float(chi.max()):.4f}]")
+
+
+def _runner_cfg(steps: int):
+    """The runner's intervals the namelist shim does not map: auxhist2 and
+    restart every 6 steps (60 s at dt 10 s)."""
+    import dataclasses
+
+    def configure(cfg):
+        return cfg.replace(time_control=dataclasses.replace(
+            cfg.time_control, run_seconds=steps * cfg.dynamics.dt,
+            auxhist2_interval_s=60.0, restart_interval_s=60.0))
+    return configure
+
+
+def phase_cases():
+    """Each ideal case of ``run.CASES`` through ``run.build_model`` on the
+    card, 20x20x10, 100 per cell (capacity 128), live dynamics, emission,
+    coagulation, deposition and transport on, for 2 steps.  20 cells wide:
+    em_rotational's default period (100 dt) spins the domain's corners past
+    CFL 1 at dx 2 km, dt 10 s from about 32 cells wide, and both packages'
+    dycores then go NaN."""
+    import dataclasses
+
+    import torch
+
+    from wrf_partmc_tpu_torch import run
+    from wrf_partmc_tpu_torch.config import DomainConfig, PartmcConfig, uniform_test_config
+
+    cfg = uniform_test_config().replace(
+        domain=DomainConfig(nx=20, ny=20, nz=10),
+        partmc=PartmcConfig(num_particles=100, max_particles=128, n_emit_slots=4))
+    cfg = cfg.replace(dynamics=dataclasses.replace(cfg.dynamics, constant_velocity=False))
+    reset_counts()
+    line = []
+    for case in sorted(run.CASES):
+        model, state = run.build_model(cfg, case, device="cuda")
+        alive0 = int(state.aero.n_alive().sum())
+        t0 = time.perf_counter()
+        for _ in range(2):
+            state = model(state)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / 2
+        alive = int(state.aero.n_alive().sum())
+        for name in ("u", "w", "theta_p", "p_p"):
+            require(bool(torch.isfinite(getattr(state.dyn, name)).all()),
+                    f"case {case}: {name} not finite")
+        require(bool(torch.isfinite(state.aero.num).all()), f"case {case}: num not finite")
+        require(state.step == 2 and alive > 0, f"case {case}: step {state.step}, alive {alive}")
+        line.append(f"{case} alive {alive0}->{alive}, {ms:.3f} ms/step, max|w| "
+                    f"{float(state.dyn.w.abs().max()):.3e}")
+        del model, state
+    launches, shapes = read_counts()
+    print("[cases] 20x20x10, 100/cell, 2 steps each on cuda: " + "; ".join(line)
+          + f"; launches {launches}")
+    return shapes
+
+
+RUNNER_NAMELIST = """ &time_control
+ history_interval = 1,
+ restart          = .false.,
+ /
+ &domains
+ e_we   = 41,
+ e_sn   = 41,
+ e_vert = 11,
+ dx     = 2000.0,
+ dy     = 2000.0,
+ ztop   = 2000.0,
+ /
+ &dynamics
+ chem_adv_opt  = 2,
+ moist_adv_opt = 1,
+ diff_opt      = 0,
+ km_opt        = 4,
+ /
+ &partmc
+ num_particles    = 1000,
+ max_particles    = 1280,
+ n_emit_slots     = 4,
+ partmc_chem_dt   = 60.0,
+ do_coagulation   = .true.,
+ do_emission      = .true.,
+ do_deposition    = .true.,
+ do_transport     = .true.,
+ do_mosaic        = .false.,
+ record_removals  = .true.,
+ record_aero_info = .true.,
+ /
+ &bdy_control
+ periodic_x = .true.,
+ periodic_y = .true.,
+ /
+"""
+RUNNER_DIR = os.path.join(ROOT, "build", "runner")
+CELL = (10, 40, 40)
+HIST_VARS = dict(
+    {k: CELL for k in ("U", "V", "T", "P", "QVAPOR", "chi", "d_alpha", "d_gamma",
+                       "chi_sub", "pm1", "pm25", "pm10", "b_scat", "b_abs", "b_scat_mix",
+                       "b_abs_mix")},
+    W=(11, 40, 40), NUM_CONC=(4, *CELL), ZH=(10,), num_dist=(*CELL, 100),
+    mass_dist=(*CELL, 100), spec_mass=(*CELL, 20), ccn=(*CELL, 4), ccn_mix=(*CELL, 4),
+    **{f"removed_num_{c}": CELL for c in ("dilution", "coag", "chem", "outflow",
+                                          "deposition", "halving")},
+    **{f"trans_{c}": () for c in ("movers", "overflow_class", "overflow_free")})
+PART_VARS = dict(
+    aero_particle_vol=(*CELL, 20, 1280), aero_comp_source=(*CELL, 3, 1280),
+    aero_comp_vol=(*CELL, 3, 1280), next_id=CELL, gas_mixrat=(*CELL, 32),
+    **{k: (*CELL, 1280) for k in ("aero_num", "aero_id", "aero_source",
+                                  "aero_weight_class", "aero_create_time",
+                                  "aero_water_hyst_leg")})
+
+
+def _check_schema(path: str, want: dict) -> dict:
+    """The file holds exactly the JAX writer's variables with their shapes;
+    returns its small variables' values."""
+    import numpy as np
+    from scipy.io import netcdf_file
+
+    f = netcdf_file(path, "r", mmap=True)
+    got = {k: tuple(v.shape) for k, v in f.variables.items()}
+    small = {k: np.array(v[:]) if v.shape else float(v.getValue())
+             for k, v in f.variables.items() if np.prod(v.shape) < 2_000_000}
+    f.close()
+    require(got == want, f"{os.path.basename(path)}: variables {sorted(set(got) ^ set(want))} "
+            f"or shapes differ from the JAX writer's")
+    return small
+
+
+def _sizes(paths) -> str:
+    return ", ".join(f"{os.path.basename(p)} {os.path.getsize(p) / 2**20:.1f} MiB"
+                     for p in paths)
+
+
+def phase_runner(kernels: dict, steps: int = 12):
+    """``run.main`` at the em_uniform namelist width: 40x40x10 at 2 km, dt
+    10 s, 1000 particles per cell (capacity 1280), live dynamics with
+    emission, coagulation (chem_dt 60 s), deposition and transport,
+    removals and coagulation records on; history and auxhist2 every 6
+    steps, the npz restart at step 6, 12 steps.  Then the same
+    model stepped bare, and each file writer timed alone on the final
+    state."""
+    import shutil
+
+    import numpy as np
+
+    import torch
+
+    from wrf_partmc_tpu_torch import run
+    from wrf_partmc_tpu_torch.models.coupled.driver import make_env
+    from wrf_partmc_tpu_torch.models.partmc.bin_grid import make_bin_grid
+    from wrf_partmc_tpu_torch.models.partmc.diagnostics import process
+    from wrf_partmc_tpu_torch.utils import io
+
+    shutil.rmtree(RUNNER_DIR, ignore_errors=True)
+    os.makedirs(RUNNER_DIR)
+    nml = os.path.join(RUNNER_DIR, "namelist.input")
+    with open(nml, "w") as fh:
+        fh.write(RUNNER_NAMELIST)
+    out = os.path.join(RUNNER_DIR, "full")
+    argv = ["--namelist", nml, "--steps", str(steps), "--outdir", out]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    cs, timers = run.main(argv, configure=_runner_cfg(steps))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, shapes = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[runner] {shutil.disk_usage(RUNNER_DIR).free / 2**30:.1f} GiB free under build/")
+    files = sorted(os.listdir(out))
+    print(f"[runner] 40x40x10, 1000/cell, cap 1280, {steps} steps through run.main: wall "
+          f"{wall:.3f} s, peak {peak:.3f} GiB, files: " + _sizes(os.path.join(out, f)
+                                                              for f in files))
+    for name in ("coupled_step", "partmc_process", "history_write", "restart_write"):
+        n, tot = timers.counts[name], timers.totals[name]
+        require(n > 0, f"runner: no {name} section")
+        print(f"[runner] timer {name}: {n} calls, {tot:.3f} s, {1e3 * tot / n:.3f} ms/call")
+    runner_ms = 1e3 * timers.totals["coupled_step"] / timers.counts["coupled_step"]
+    for stem in ("wrfout_000000.nc", "wrfout_000006.nc", "partmc_000000.nc",
+                 "partmc_000006.nc", "restart_000006.npz", "restart_final.npz"):
+        require(stem in files, f"runner: {stem} not written")
+    for stem in ("wrfout_000000.nc", "wrfout_000006.nc"):
+        h = _check_schema(os.path.join(out, stem), HIST_VARS)
+        fin = np.isfinite(h["chi"])
+        require(fin.any() and ((h["chi"][fin] >= 0) & (h["chi"][fin] <= 1)).all(),
+                f"{stem}: chi outside [0, 1] where finite")
+        for k, v in h.items():
+            if k.startswith(("removed_num_", "trans_")):
+                require(bool(np.isfinite(v).all()), f"{stem}: {k} not finite")
+    print(f"[runner] wrfout_000006: chi in [{np.nanmin(h['chi']):.4f}, "
+          f"{np.nanmax(h['chi']):.4f}] over {int(fin.sum())} finite cells; removed "
+          + " ".join(f"{k[12:]}={float(np.sum(v)):.4e}" for k, v in sorted(h.items())
+                     if k.startswith("removed_num_"))
+          + "; " + " ".join(f"{k}={h[k]:.0f}" for k in sorted(h) if k.startswith("trans_")))
+    _check_schema(os.path.join(out, "partmc_000006.nc"), PART_VARS)
+    n_events = sum(_removed_rows(os.path.join(out, f)) for f in files
+                   if f.startswith("aero_removed_"))
+    require(n_events > 0, "runner: no aero_removed row")
+    print(f"[runner] aero_removed rows: {n_events}")
+    require_launched(kernels, "launches_runner", launches, "runner path", steps)
+
+    # the same model stepped bare: build, 12 steps, one synchronize
+    cfg = _runner_cfg(steps)(run.namelist_to_config(run.load_namelist(nml)))
+    model, state = run.build_model(cfg, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state = model(state)
+    torch.cuda.synchronize()
+    bare_ms = 1e3 * (time.perf_counter() - t0) / steps
+    print(f"[runner] coupled_step in the runner {runner_ms:.3f} ms/step (with the per-step "
+          f"counter copy) vs CoupledModel bare {bare_ms:.3f} ms/step: runner/bare "
+          f"{runner_ms / bare_ms:.3f}")
+    grid, ad = model.grid, model.aero_data
+    del state
+
+    # each writer alone, synchronous, on the final state
+    wdir = os.path.join(RUNNER_DIR, "writes")
+    os.makedirs(wdir)
+    pc = cfg.partmc
+    t0 = time.perf_counter()
+    diag = process(cs.aero, ad, make_env(cs.dyn, grid, cfg, cs.step),
+                   make_bin_grid(pc.num_bins, pc.bin_d_min, pc.bin_d_max, device="cuda"))
+    torch.cuda.synchronize()
+    proc_ms = 1e3 * (time.perf_counter() - t0)
+    writes = (("history", "h.nc", lambda p: io.write_history(p, cs, grid, cfg, diag)),
+              ("particle", "p.nc", lambda p: io.write_particle_netcdf(p, cs, ad, grid)),
+              ("restart npz", "r.npz", lambda p: io.write_restart(p, cs)),
+              ("restart NetCDF", "r.nc", lambda p: io.write_restart_netcdf(p, cs, ad, grid)))
+    line = [f"process {proc_ms:.3f} ms"]
+    for label, stem, fn in writes:
+        p = os.path.join(wdir, stem)
+        t0 = time.perf_counter()
+        fn(p)
+        dt = time.perf_counter() - t0
+        size = os.path.getsize(p) + (os.path.getsize(p + ".dyn") if stem == "r.nc" else 0)
+        line.append(f"{label} {dt:.3f} s {size / 2**20:.1f} MiB")
+    print("[runner] writers alone, synchronous, final state: " + "; ".join(line))
+    shutil.rmtree(wdir)
+    del model, diag
+    for f in files:
+        if f.startswith("partmc_"):
+            os.remove(os.path.join(out, f))
+    return cs, shapes, argv
+
+
+def _removed_rows(path: str) -> int:
+    """An aero_removed file with the JAX writer's variables; its row count."""
+    import numpy as np
+    from scipy.io import netcdf_file
+
+    f = netcdf_file(path, "r", mmap=False)
+    names = sorted(f.variables)
+    n = int(f._attributes["n_events"])
+    rid = np.array(f.variables["aero_removed_removed_id"][:])
+    f.close()
+    require(names == sorted(f"aero_removed_{c}" for c in ("cell", "other_id",
+                                                          "removed_id", "step")),
+            f"{os.path.basename(path)}: variables {names}")
+    require(int((rid >= 0).sum()) == n, f"{os.path.basename(path)}: {n} events")
+    return n
+
+
+def phase_resume(cs_full, argv, steps: int = 12):
+    """Resume from the step-6 npz restart, and from a NetCDF restart of the
+    state read back from it, for 6 steps each; each final state must equal
+    the continuous run's bit for bit."""
+    import shutil
+
+    import torch
+
+    from wrf_partmc_tpu_torch import run
+    from wrf_partmc_tpu_torch.utils import io
+    from wrf_partmc_tpu_torch.utils.tree import tensor_leaves
+
+    full = tensor_leaves(cs_full, "s")
+    cfg = _runner_cfg(steps)(run.namelist_to_config(run.load_namelist(argv[argv.index("--namelist") + 1])))
+    model, template = run.build_model(cfg, device="cuda")
+    rst = os.path.join(RUNNER_DIR, "full", "restart_000006")
+    io.write_restart_netcdf(rst + ".nc", io.read_restart(rst + ".npz", template),
+                            model.aero_data, model.grid)
+    del model, template
+    for stem in ("restart_000006.npz", "restart_000006.nc"):
+        out = os.path.join(RUNNER_DIR, f"resume_{stem}")
+        a = list(argv)
+        a[a.index("--outdir") + 1] = out
+        t0 = time.perf_counter()
+        cs, _ = run.main(a + ["--restart", os.path.join(RUNNER_DIR, "full", stem)],
+                         configure=_runner_cfg(steps))
+        torch.cuda.synchronize()
+        res = tensor_leaves(cs, "s")
+        require(cs.step == cs_full.step == steps, f"resume {stem}: step {cs.step}")
+        require(sorted(res) == sorted(full), f"resume {stem}: state fields differ")
+        diff = [k for k in full if not torch.equal(full[k], res[k])]
+        require(not diff, f"resume {stem}: not bit-equal to the continuous run: {diff[:5]}")
+        print(f"[resume] from {stem}: {len(full)} state tensors bit-equal to the continuous "
+              f"run after step {steps}; {time.perf_counter() - t0:.3f} s")
+        shutil.rmtree(out)
+    shutil.rmtree(RUNNER_DIR)
+
+
 def _free():
     import gc
 
@@ -1053,6 +1434,16 @@ def main() -> int:
         phase_path_shapes("CARES path", kernels, shapes)
         phase_path_indices("CARES path", captured)
         del captured
+        _free()
+        phase_diag_card_vs_cpu()
+        shapes = phase_cases()
+        _free()
+        phase_path_shapes("cases", kernels, shapes)
+        cs_full, shapes, argv = phase_runner(kernels)
+        _free()
+        phase_path_shapes("runner path", kernels, shapes)
+        phase_resume(cs_full, argv)
+        del cs_full
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -165,8 +165,9 @@ def test_open_boundary_run_stays_finite():
 
 UNPORTED = {
     "seasalt": dict(partmc=dict(seasalt_param=1)),
-    "record_removals": dict(partmc=dict(record_removals=True)),
-    "record_aero_info": dict(partmc=dict(record_aero_info=True)),
+    "sfs_opt=1": dict(dynamics=dict(sfs_opt=1)),
+    "km_opt=2 with diff_opt=2": dict(dynamics=dict(diff_opt=2, km_opt=2)),
+    "WENO": dict(dynamics=dict(h_adv_order="weno5", v_adv_order="weno3")),
     "YSU": dict(dynamics=dict(bl_physics=1)),
     "BMJ": dict(dynamics=dict(cu_physics=2)),
     "Kessler": dict(dynamics=dict(mp_physics=1)),

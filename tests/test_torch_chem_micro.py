@@ -230,7 +230,7 @@ def test_microphysics_step(case, options):
     ref_a, ref_g, _, _ = jax.jit(lambda a, g, e, k: jdriver.microphysics_step(
         a, g, e, j["ad"], jgd, None, cfg, None, None, jax.numpy.float32(3000.0), k))(
         j["aero"], gas, j["env"], key)
-    out_a, out_g = driver.microphysics_step(
+    out_a, out_g, _, _ = driver.microphysics_step(
         t["aero"], torch.tensor(gas), t["env"], t["ad"], tgd, cfg, 3000.0,
         tuple(int(v) for v in np.asarray(jax.random.key_data(key))),
         mech=build_mechanism() if cbmz else None)

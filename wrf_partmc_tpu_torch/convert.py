@@ -3,7 +3,8 @@
 ``from_numpy`` turns the JAX package's dataclasses (``CoupledState``,
 ``DycoreState``, ``AeroState``, ``Grid``, ``AeroData``, ``Scenario``,
 ``AeroDist``, ``OutflowProbs``, ``EnvState``, ``GasData``, ``NoahState``,
-``LandState``, ``BdyData``, ``BulkOptics``, ...) into the port's
+``LandState``, ``BdyData``, ``BulkOptics``, ``BinGrid``,
+``AeroDiagnostics``, ...) into the port's
 counterparts, matching classes by name and fields by name.  The input is
 any object with the JAX field names holding numpy arrays (for example
 ``jax.tree.map(np.asarray, state)``); nothing here imports jax.
@@ -27,6 +28,8 @@ from .models.dycore.solve import StepDiag
 from .models.dycore.state import DycoreState
 from .models.partmc.aero_data import AeroData
 from .models.partmc.aero_state import AeroState
+from .models.partmc.bin_grid import BinGrid
+from .models.partmc.diagnostics import AeroDiagnostics
 from .models.partmc.dist import AeroDist
 from .models.partmc.env_state import EnvState
 from .models.partmc.gas_data import GasData
@@ -39,7 +42,7 @@ from .utils.tree import tree_map
 _CLASSES = {cls.__name__: cls for cls in (
     CoupledState, DycoreState, AeroState, Grid, AeroData, AeroDist, EnvState,
     GasData, Scenario, OutflowProbs, StepDiag, NoahState, LandState, BdyData,
-    BulkOptics)}
+    BulkOptics, BinGrid, AeroDiagnostics)}
 
 _NARROW = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32}
 _KEEP = (np.dtype(np.float32), np.dtype(np.int32), np.dtype(np.bool_))

@@ -10,7 +10,10 @@ vertical diffusion -> partmc_from_wrf -> emission -> aerosol optics
 condensation) -> Grell cumulus (cu_physics=5) -> radiation and the land
 surface (ra_physics 1/4, sf_surface_physics 1/2) -> stochastic transport
 -> open-boundary inflow resampling and gas BCs -> surface deposition ->
-rebalance.
+rebalance.  With ``record_removals`` the state carries the represented
+number each number-decreasing process removed, per cell and cause; with
+``record_aero_info`` a chemistry step also returns the coagulation removal
+records (``coag_step(return_events=True)``).
 
 :class:`CoupledModel` holds the static tables (grid metrics, ``AeroData``,
 ``GasData``, the CBM-Z ``Mechanism``, ``Scenario``, ``exch_h``, the wrfbdy
@@ -75,6 +78,9 @@ class CoupledState:
     land: LandState | NoahState | None = None
     # MYJ twice-TKE at w levels [nz+1, ny, nx] (bl_physics=2)
     pbl_q2: torch.Tensor | None = None
+    # cumulative represented number removed per cell [nz, ny, nx], by cause
+    # (REMOVAL_CAUSES; record_removals), None when off
+    removals: dict | None = None
 
     def to(self, device) -> "CoupledState":
         return tree_map(lambda t: t.to(device), self)
@@ -161,15 +167,25 @@ def microphysics_step(aero: AeroState, gas, env: EnvState, aero_data: AeroData,
     coagulation, MOSAIC (or the simple chemistry), condensation (equilibrium
     water with hysteresis, or the dynamic ODE).  ``mech`` is the CBM-Z
     mechanism when :func:`uses_cbmz`; ``j_scale`` the per-cell aerosol
-    attenuation of photolysis.  Returns (aero, gas)."""
+    attenuation of photolysis.  Returns (aero, gas, coag_removed, events):
+    the represented number coagulation removed per cell and, with
+    ``record_aero_info``, its removal records (else ``{}``)."""
     pc = cfg.partmc
     dt_chem = pc.partmc_chem_dt
     k_coag, _k_scn, _k_ss = rng.split(key, 3)
+    coag_removed = torch.zeros_like(env.temp)
+    events = {}
     if pc.do_nucleation:
         aero, gas = nucleate_step(aero, gas, gas_data, aero_data, env.temp,
                                   env.pressure, env.cell_volume, dt_chem)
     if pc.do_coagulation:
-        aero = coag_step(aero, aero_data, env, dt_chem, k_coag)
+        n0 = aero.total_num()
+        if pc.record_aero_info:
+            aero, events = coag_step(aero, aero_data, env, dt_chem, k_coag,
+                                     return_events=True)
+        else:
+            aero = coag_step(aero, aero_data, env, dt_chem, k_coag)
+        coag_removed = torch.clamp(n0 - aero.total_num(), min=0.0)
     if pc.do_mosaic:
         if uses_cbmz(cfg, gas_data):
             cosz = solar_cos_zenith(cfg.domain, t).to(gas.device)
@@ -183,7 +199,7 @@ def microphysics_step(aero: AeroState, gas, env: EnvState, aero_data: AeroData,
             aero, _s = condense_dynamic(aero, aero_data, env, dt_chem)
         else:
             aero = equilib_water_hyst(aero, aero_data, env)
-    return aero, gas
+    return aero, gas, coag_removed, events
 
 
 def surface_deposition(aero: AeroState, env: EnvState, aero_data: AeroData,
@@ -216,8 +232,10 @@ def check_supported(cfg: Config) -> None:
     d, p = cfg.dynamics, cfg.partmc
     off = {
         "partmc.seasalt_param": p.seasalt_param,
-        "partmc.record_removals": p.record_removals,
-        "partmc.record_aero_info": p.record_aero_info,
+        "dynamics.sfs_opt=1 (NBA subfilter stress)": d.sfs_opt == 1,
+        "dynamics.km_opt=2 with diff_opt=2 (prognostic TKE)": d.km_opt == 2 and d.diff_opt == 2,
+        "dynamics WENO advection orders": isinstance(d.h_adv_order, str)
+                                          or isinstance(d.v_adv_order, str),
         "dynamics.bl_physics=1 (YSU)": d.bl_physics == 1,
         "dynamics.cu_physics=2 (BMJ)": d.cu_physics == 2,
         "dynamics.mp_physics=1/2 (Kessler/WSM5)": d.mp_physics in (1, 2),
@@ -235,17 +253,31 @@ def _season(cfg: Config) -> str:
     return "summer" if (nh_summer if cfg.domain.lat0 >= 0 else not nh_summer) else "winter"
 
 
+REMOVAL_CAUSES = ("dilution", "coag", "chem", "outflow", "deposition", "halving")
+TRANSPORT_COUNTERS = ("overflow_class", "overflow_free", "movers")
+
+
 def coupled_step(cs: CoupledState, grid: Grid, cfg: Config,
                  aero_data: AeroData, gas_data: GasData, scn: Scenario, exch_h,
                  base_seed_key, mech: Mechanism | None = None,
                  bdy: BdyData | None = None, bdy_w2=None):
     """One full coupled timestep.  ``bdy``: the wrfbdy time series of the
     specified + relaxation boundaries (``bdy_w2`` its zone weights).
-    Returns (new_state, transport diag)."""
+    Returns (new_state, diag): the transport saturation counters
+    (``TRANSPORT_COUNTERS``, 0-d tensors, zero with transport off) and, on
+    a chemistry step with ``record_aero_info``, the coagulation removal
+    records ``coag_removed_id`` / ``coag_other_id`` [nz, ny, nx, P//2]."""
     pc = cfg.partmc
     dy = cfg.dynamics
     dt = dy.dt
     m_chem = max(1, int(round(pc.partmc_chem_dt / dt)))
+    rem = dict(cs.removals) if cs.removals is not None else None
+
+    def record(cause, before, after):
+        # number-decreasing processes: represented number removed per cell
+        if rem is not None:
+            rem[cause] = rem[cause] + torch.clamp(
+                before.total_num() - after.total_num(), min=0.0)
     keys = {s: rng.step_key(base_seed_key, cs.step, s)
             for s in (rng.STREAM_COAG, rng.STREAM_EMISSION,
                       rng.STREAM_TRANSPORT, rng.STREAM_DEPOSITION,
@@ -290,8 +322,10 @@ def coupled_step(cs: CoupledState, grid: Grid, cfg: Config,
         env = dataclasses.replace(env, ustar=sfc_ustar.expand(env.temp.shape))
 
     if pc.do_emission:
+        a0 = aero
         aero, gas = emission_step(aero, gas, env, aero_data, scn, cfg, t,
                                   keys[rng.STREAM_EMISSION])
+        record("dilution", a0, aero)
     else:
         gas = update_gas_state(scn, gas, t, dt)
 
@@ -302,15 +336,26 @@ def coupled_step(cs: CoupledState, grid: Grid, cfg: Config,
     if pc.do_optical and radiation:
         optics = bulk_optical_props(aero, aero_data, grid.dz, env.cell_volume)
 
+    tdiag = {}
     if ((pc.do_coagulation or pc.do_condensation or pc.do_nucleation
          or pc.do_mosaic) and cs.step % m_chem == 0):
         j_scale = None
         if optics is not None and pc.do_mosaic:
             j_scale = photolysis_aerosol_factor(optics.tauaer, optics.waer,
                                                 optics.gaer, cosz)
-        aero, gas = microphysics_step(aero, gas, env, aero_data, gas_data, cfg, t,
-                                      keys[rng.STREAM_COAG], mech=mech,
-                                      j_scale=j_scale)
+        a0 = aero
+        aero, gas, coag_rem, events = microphysics_step(
+            aero, gas, env, aero_data, gas_data, cfg, t, keys[rng.STREAM_COAG],
+            mech=mech, j_scale=j_scale)
+        if rem is not None:
+            # coagulation's losses apart from the rest of the macro-step's
+            # (nucleation, MOSAIC, condensation)
+            rem["coag"] = rem["coag"] + coag_rem
+            rem["chem"] = rem["chem"] + torch.clamp(
+                a0.total_num() - aero.total_num() - coag_rem, min=0.0)
+        if events:
+            tdiag["coag_removed_id"] = events["removed_id"]
+            tdiag["coag_other_id"] = events["other_id"]
 
     if dy.cu_physics == 5:
         dyn2, _rainc = grell_step(dyn2, grid, dt)
@@ -338,28 +383,44 @@ def coupled_step(cs: CoupledState, grid: Grid, cfg: Config,
             else:
                 land2, _fluxes = slab_lsm_step(*lsm_args)
 
-    tdiag = {}
     dz3 = None
+    periodic = cfg.boundary.periodic_x and cfg.boundary.periodic_y
     if pc.do_transport:
         vol3 = cell_volume_3d(dyn2, grid)
         rho3 = cell_air_mass(dyn2, grid) / vol3
         dz3 = vol3 / (grid.dx * grid.dy)
-        aero, tdiag = transport_step(aero, diag.probs, diag.xkhh, exch_h, grid,
+        a0 = aero
+        aero, trans = transport_step(aero, diag.probs, diag.xkhh, exch_h, grid,
                                      cfg, dt, keys[rng.STREAM_TRANSPORT],
                                      rho3=rho3, dz3=dz3)
+        tdiag.update(trans)
+        if not periodic:
+            record("outflow", a0, aero)
+    else:
+        zero = torch.zeros((), dtype=torch.float32, device=aero.num.device)
+        tdiag.update({k: zero for k in TRANSPORT_COUNTERS})
 
-    if not (cfg.boundary.periodic_x and cfg.boundary.periodic_y):
+    if not periodic:
         bc_key = rng.step_key(base_seed_key, cs.step, rng.STREAM_BC)
         aero = resample_inflow_particles(aero, dyn2, scn, aero_data, grid, cfg, bc_key)
         gas = apply_gas_open_bc(gas, dyn2, scn, grid, cfg)
     if pc.do_deposition:
+        a0 = aero
         aero = surface_deposition(aero, env, aero_data, grid, cfg,
                                   keys[rng.STREAM_DEPOSITION], rmol=sfc_rmol,
                                   dz1=dz3[0] if dz3 is not None else None)
+        record("deposition", a0, aero)
+    a0 = aero
     aero = rebalance(aero, keys[rng.STREAM_REBALANCE], pc.num_particles,
                      pc.allow_halving, pc.allow_doubling)
-    return CoupledState(dyn=dyn2, aero=aero, gas=gas, step=cs.step + 1,
-                        land=land2, pbl_q2=q2_new), tdiag
+    record("halving", a0, aero)
+    # every leaf contiguous (moist, chem and gas come out as transposed
+    # views): a state read back from a restart is contiguous, and reductions
+    # may sum in another order over another layout, so one layout keeps a
+    # resumed run bit-equal to the run that wrote the restart
+    out = CoupledState(dyn=dyn2, aero=aero, gas=gas, step=cs.step + 1,
+                       land=land2, pbl_q2=q2_new, removals=rem)
+    return tree_map(lambda t: t.contiguous(), out), tdiag
 
 
 def init_coupled(cfg: Config, grid: Grid, aero_data: AeroData,
@@ -378,8 +439,12 @@ def init_coupled(cfg: Config, grid: Grid, aero_data: AeroData,
         land = init_noah(grid.ny, grid.nx, t_sfc0, tbot=t_sfc0 - 3.0,
                          ivgtyp=ivgtyp, isltyp=isltyp, device=dev)
     pbl_q2 = init_q2(grid) if cfg.dynamics.bl_physics == 2 else None
+    removals = None
+    if cfg.partmc.record_removals:
+        z3 = torch.zeros((grid.nz, grid.ny, grid.nx), dtype=torch.float32, device=dev)
+        removals = {k: z3 for k in REMOVAL_CAUSES}
     return CoupledState(dyn=dyn, aero=aero, gas=gas, step=0, land=land,
-                        pbl_q2=pbl_q2)
+                        pbl_q2=pbl_q2, removals=removals)
 
 
 class CoupledModel(torch.nn.Module):
@@ -387,8 +452,8 @@ class CoupledModel(torch.nn.Module):
     (non-persistent): grid metrics, ``AeroData``, ``GasData``, ``Scenario``,
     ``exch_h``, when MOSAIC runs CBM-Z the ``Mechanism`` tables, and with a
     wrfbdy (``bdy``) its slabs and the zone weights.  ``forward(state)``
-    returns the next state; the transport counters of the last step are kept
-    in ``last_diag``."""
+    returns the next state; the step's diag (transport counters, removal
+    records) is kept in ``last_diag``."""
 
     def __init__(self, cfg: Config, grid: Grid, aero_data: AeroData,
                  gas_data: GasData, scn: Scenario, exch_h, seed: int = 0,

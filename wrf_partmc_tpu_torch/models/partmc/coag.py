@@ -4,7 +4,9 @@ Port of ``coag_step`` and the Brownian kernel of
 ``wrf_partmc_tpu/models/partmc/coag.py``: each step pairs the alive slots of
 every cell through one random permutation, applied to the packed payload by
 ``gather_rows`` (kernel K3 on CUDA), draws the number of coalescence events
-per pair, and merges the pair in place.
+per pair, and merges the pair in place.  With ``return_events`` it also
+returns the per-pair removal records (the reference's ``aero_info_array``
+with action=coag).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from ... import constants as c
 from ...ops.place import gather_rows
 from ...utils import rng
 from .aero_data import AeroData, vol_to_diam
-from .aero_state import AeroState, pack_payload, unpack_payload
+from .aero_state import _PID_SPLIT, AeroState, pack_payload, unpack_payload
 from .env_state import EnvState
 
 
@@ -78,8 +80,15 @@ def _merge_components(sml, big, g, did, S: int, K: int):
     return sv_out, si_out
 
 
-def coag_step(state: AeroState, aero_data: AeroData, env: EnvState, dt, key):
-    """One Monte Carlo coagulation step over every cell at once."""
+def coag_step(state: AeroState, aero_data: AeroData, env: EnvState, dt, key,
+              return_events: bool = False):
+    """One Monte Carlo coagulation step over every cell at once.
+
+    ``return_events=True`` also returns ``{"removed_id", "other_id"}``,
+    each [..., P//2] int32: for each candidate pair, the id of the particle
+    whose multiplicity reached zero and of its surviving partner, -1 where
+    the pair removed nothing.  The ids come from the payload's two pid
+    channels (lo, hi), as the reference reads them."""
     P = state.capacity
     n_pair = P // 2
     cs = state.cell_shape
@@ -155,5 +164,14 @@ def coag_step(state: AeroState, aero_data: AeroData, env: EnvState, dt, key):
     # primary source label follows the largest component
     top = torch.argmax(st.src_vol, dim=-2, keepdim=True)
     prim = torch.gather(st.src_id, -2, top)[..., 0, :]
-    return dataclasses.replace(
+    out_state = dataclasses.replace(
         st, source=torch.where((prim >= 0) & st.alive, prim, st.source))
+    if not return_events:
+        return out_state
+
+    def pid_of(r):
+        return (torch.round(r[..., 2, :]).to(torch.int32)
+                + _PID_SPLIT * torch.round(r[..., 3, :]).to(torch.int32))
+    removed = did & big_dead
+    return out_state, {"removed_id": torch.where(removed, pid_of(big), -1),
+                       "other_id": torch.where(removed, pid_of(sml), -1)}
