@@ -57,9 +57,26 @@ Phases, each printed on its own line and each fatal on failure:
     the aero_removed rows, the section timers, the same model stepped bare,
     and each writer timed alone with its file's size;
 15. resume: from the step-6 npz and NetCDF restarts for 6 steps each, each
-    final state bit-equal to the continuous run's.
+    final state bit-equal to the continuous run's;
+16. card against CPU, the two option sets (``OPTION_SETS``): one mesoscale
+    step (YSU, slab LSM, radiation, WSM5, BMJ, sea salt) at 12x12x4 and one
+    LES step (prognostic TKE, NBA, WENO5/3, Kessler) at 12x12x8;
+17. the mesoscale options path: 40x40x10, 1000 particles per cell
+    (capacity 1280), a warm-up and six timed steps with every kernel's
+    launch count, then two steps of a synced split (each section between
+    two ``torch.cuda.synchronize()``), the sea salt added per level, the
+    BMJ rain and the WSM5 ice and snow;
+18. the LES options path: 40x40x16 at 1000 per cell, the same report with
+    the TKE, w and theta' ranges in place of the mesoscale physics;
+19. the cost of ``rng.normal``'s float32 erfinv (``rng.erfinv_xla``): at
+    each draw shape the paths 5, 11, 17 and 18 made, the card's draw equal
+    to the CPU's bit for bit, its call time against the same draw through
+    ``torch.erfinv``, and the difference a step.
 
-After each of the paths 5, 7, 9, 11, 13 and 14, every kernel is held against its
+Paths 5, 11, 17 and 18 also print their kernel launches by caller (17 and
+18 with K3 inside the particle rebalance and its ``split_largest``).
+
+After each of the paths 5, 7, 9, 11, 13, 14, 17 and 18, every kernel is held against its
 plain version at each argument shape that path launched it with and no
 earlier check held, with the same times.  K1 (``thomas_solve``: the
 acoustic, MYJ and Noah solves, and vertical diffusion's six fields in one
@@ -547,11 +564,11 @@ DYN_FIELDS = ("u", "v", "w", "theta_p", "p_p", "mu", "ph", "moist", "chem",
               "num_conc", "tke")
 
 
-def compare_card_cpu(tag: str, out_gpu, out_cpu) -> str:
+def compare_card_cpu(tag: str, out_gpu, out_cpu, floor: float = 1e-4) -> str:
     """Hold a step on the card against the same step on the CPU: every dycore
     field by the rule of the CPU parity tests against the JAX package
     (tests/test_torch_coupled.py, tests/test_torch_chem_coupled.py): rtol
-    1e-4, absolute floor 1e-4 of the field's scale, with roundoff-sized
+    1e-4, absolute floor ``floor`` of the field's scale, with roundoff-sized
     floors for w and ph in uniform flow; per cell the represented number rtol
     1e-4 and the per-species volume rtol 1e-4 with a floor of 1e-6 of the
     largest.  Returns the differences as one line."""
@@ -561,7 +578,7 @@ def compare_card_cpu(tag: str, out_gpu, out_cpu) -> str:
     worst = {}
     for name in DYN_FIELDS:
         a, b = getattr(out_gpu.dyn, name), getattr(out_cpu.dyn, name)
-        atol = max(floors.get(name, 0.0), 1e-4 * float(b.abs().max()))
+        atol = max(floors.get(name, 0.0), floor * float(b.abs().max()))
         worst[name] = float((a - b).abs().max())
         require(torch.allclose(a, b, rtol=1e-4, atol=atol),
                 f"{tag}: dyn.{name} max diff {worst[name]}")
@@ -635,12 +652,15 @@ def phase_main_path(kernels: dict, n_timed: int = 6):
           f"{time.perf_counter() - t0:.3f} s, alive {int(state.aero.n_alive().sum())}")
     # step 0 coagulates, then steps 1..6, of which step 6 coagulates; step 0
     # leaves copies of its K2/K3 index arrays (outside the timed steps)
-    by_caller, captured = {}, {}
+    by_caller, captured, draws = {}, {}, {}
     restore = attribute_launches(by_caller, captured)
+    restore_draws = record_normals(draws)
     state, warm, dt, launches, shapes = drive(model, state, n_timed)
+    restore_draws()
     restore()
     cells = 40 * 40 * 10
     ms = 1e3 * dt / n_timed
+    NORMAL_DRAWS["main path"] = (draws, n_timed + 1, ms)
     alive = int(state.aero.n_alive().sum())
     print(f"[main] warm-up step {1e3 * warm:.3f} ms; {n_timed} timed steps "
           f"{1e3 * dt:.3f} ms = {ms:.3f} ms/step, {cells * n_timed / dt:.1f} "
@@ -924,11 +944,14 @@ def phase_cares_path(kernels: dict, n_timed: int = 20):
     require(n_timed % m_chem == 0, f"{n_timed} timed steps hold no whole chem cadence")
     print(f"[cares] build 72x72x24, 100/cell, cap 128, 77 gases, chem_dt 300 s, dt 30 s: "
           f"{time.perf_counter() - t0:.3f} s, alive {int(state.aero.n_alive().sum())}")
-    by_caller, captured = {}, {}
+    by_caller, captured, draws = {}, {}, {}
     restore = attribute_launches(by_caller, captured)
+    restore_draws = record_normals(draws)
     state, warm, dt, launches, shapes = drive(model, state, n_timed)
+    restore_draws()
     restore()
     ms = 1e3 * dt / n_timed
+    NORMAL_DRAWS["CARES path"] = (draws, n_timed + 1, ms)
     alive = int(state.aero.n_alive().sum())
     means = _domain_means(model, state)
     mu_max = float(state.dyn.mu.abs().max())
@@ -953,47 +976,125 @@ def phase_cares_path(kernels: dict, n_timed: int = 20):
     return shapes, captured
 
 
-def attribute_launches(by_caller: dict, captured: dict):
-    """Count, per caller, the kernel launches made inside the calls each of
-    these modules makes to the kernels' dispatchers: K1 from the MYJ q2
-    column and the Noah soil column, K2 and K3 from the transport rebucket,
-    K3 from the coagulation pairing.  The first call of K2 or K3 at each
-    (caller, shape) also leaves a copy of its index array in ``captured``
-    (the path's own dst and src; keyed (kernel, caller, payload shape,
-    slots)).  Returns a function that restores the modules."""
-    from wrf_partmc_tpu_torch.models.coupled import transport
-    from wrf_partmc_tpu_torch.models.partmc import coag
-    from wrf_partmc_tpu_torch.models.physics import lsm, myj
-
-    fns = _kernel_fns()
-    sites = ((myj, "tridiag_solve", "thomas_solve", "K1 in MYJ"),
-             (lsm, "tridiag_solve", "thomas_solve", "K1 in Noah"),
-             (transport, "scatter_rows", "scatter_rows", "K2 in the rebucket"),
-             (transport, "gather_rows", "gather_rows", "K3 in the rebucket"),
-             (coag, "gather_rows", "gather_rows", "K3 in coagulation"))
+def patch_sites(sites, hook):
+    """Replace each (module, attribute) of ``sites`` by a wrapper that calls
+    ``hook(label, fn, args, kwargs)``.  Returns a function that restores
+    the modules."""
     saved = []
-    for mod, attr, kernel, caller in sites:
+    for mod, attr, label in sites:
         inner = getattr(mod, attr)
-        by_caller[caller] = 0
 
-        def counted(*args, _inner=inner, _fn=fns[kernel], _kernel=kernel, _caller=caller):
-            if _kernel != "thomas_solve":
-                x, idx = args[0], args[1]
-                slots = args[2] if _kernel == "scatter_rows" else idx.shape[1]
-                key = (_kernel, _caller, tuple(x.shape), slots)
-                if key not in captured:
-                    captured[key] = idx.clone()
-            before = _fn.launches
-            out = _inner(*args)
-            by_caller[_caller] += _fn.launches - before
-            return out
+        def wrapped(*args, _inner=inner, _label=label, **kwargs):
+            return hook(_label, _inner, args, kwargs)
         saved.append((mod, attr, inner))
-        setattr(mod, attr, counted)
+        setattr(mod, attr, wrapped)
 
     def restore():
         for mod, attr, inner in saved:
             setattr(mod, attr, inner)
     return restore
+
+
+def attribute_launches(by_caller: dict, captured: dict, rebalance: bool = False):
+    """Count, per caller, the kernel launches made inside the calls each of
+    these modules makes to the kernels' dispatchers: K1 from the MYJ q2
+    column and the Noah soil column, K2 and K3 from the transport rebucket,
+    K3 from the coagulation pairing, and with ``rebalance`` K3 inside the
+    driver's particle rebalance and, within it, ``split_largest``.  The
+    first call of K2 or K3 at each (caller, shape) from a dispatcher also
+    leaves a copy of its index array in ``captured`` (the path's own dst
+    and src; keyed (kernel, caller, payload shape, slots)).  Returns a
+    function that restores the modules."""
+    from wrf_partmc_tpu_torch.models.coupled import driver, transport
+    from wrf_partmc_tpu_torch.models.partmc import aero_state, coag
+    from wrf_partmc_tpu_torch.models.physics import lsm, myj
+
+    fns = _kernel_fns()
+    kernel_of = {"K1 in MYJ": "thomas_solve", "K1 in Noah": "thomas_solve",
+                 "K2 in the rebucket": "scatter_rows", "K3 in the rebucket": "gather_rows",
+                 "K3 in coagulation": "gather_rows"}
+    sites = [(myj, "tridiag_solve", "K1 in MYJ"), (lsm, "tridiag_solve", "K1 in Noah"),
+             (transport, "scatter_rows", "K2 in the rebucket"),
+             (transport, "gather_rows", "K3 in the rebucket"),
+             (coag, "gather_rows", "K3 in coagulation")]
+    wrappers = set()                 # callers that are not a kernel's dispatcher
+    if rebalance:
+        wrappers = {"K3 in rebalance", "K3 in rebalance/split_largest"}
+        kernel_of.update({k: "gather_rows" for k in wrappers})
+        sites += [(driver, "rebalance", "K3 in rebalance"),
+                  (aero_state, "split_largest", "K3 in rebalance/split_largest")]
+    by_caller.update({caller: 0 for caller in kernel_of})
+
+    def hook(caller, fn, args, kwargs):
+        kernel = kernel_of[caller]
+        if kernel != "thomas_solve" and caller not in wrappers:
+            x, idx = args[0], args[1]
+            slots = args[2] if kernel == "scatter_rows" else idx.shape[1]
+            key = (kernel, caller, tuple(x.shape), slots)
+            if key not in captured:
+                captured[key] = idx.clone()
+        before = fns[kernel].launches
+        out = fn(*args, **kwargs)
+        by_caller[caller] += fns[kernel].launches - before
+        return out
+    return patch_sites(sites, hook)
+
+
+# per path: ({draw shape: calls}, steps, ms/step) of rng.normal in its run
+NORMAL_DRAWS = {}
+
+
+def record_normals(draws: dict):
+    """Count the calls of ``rng.normal`` by draw shape in ``draws`` (the
+    particle samples of emission, inflow resampling and initialization).
+    Returns a function that restores the module."""
+    from wrf_partmc_tpu_torch.utils import rng
+
+    def hook(_, fn, args, kwargs):
+        shape = tuple(args[1])
+        draws[shape] = draws.get(shape, 0) + 1
+        return fn(*args, **kwargs)
+    return patch_sites([(rng, "normal", "normal")], hook)
+
+
+def phase_normal_cost():
+    """What the float32 erfinv of XLA-CPU (``rng.erfinv_xla``, which keeps
+    ``rng.normal`` bit-equal to ``jax.random.normal`` on the CPU) costs
+    each path against ``torch.erfinv``: at each draw shape a path made, the
+    call time of ``rng.normal`` and of the same uniform through
+    ``torch.erfinv``, and the difference times the draws a step.  At each
+    shape the card's draw must equal the CPU's bit for bit."""
+    import math
+
+    import torch
+
+    from wrf_partmc_tpu_torch.utils import rng
+
+    k = rng.key(0)
+    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+    sqrt2 = float(torch.tensor(math.sqrt(2.0), dtype=torch.float32))
+    timed = {}
+    for path, (draws, steps, step_ms) in NORMAL_DRAWS.items():
+        extra, parts = 0.0, []
+        for shape, calls in sorted(draws.items()):
+            if shape not in timed:
+                ours = call_ms(lambda: rng.normal(k, shape, "cuda"), 20)
+                torchs = call_ms(lambda: sqrt2 * torch.erfinv(
+                    rng.uniform(k, shape, "cuda", lo, 1.0)), 20)
+                a = rng.normal(k, shape, "cuda")
+                b = sqrt2 * torch.erfinv(rng.uniform(k, shape, "cuda", lo, 1.0))
+                require(torch.equal(a.cpu(), rng.normal(k, shape, "cpu")),
+                        f"rng.normal {list(shape)}: the card's draw differs from the CPU's")
+                timed[shape] = (ours, torchs, float((a - b).abs().max()),
+                                float((a == b).float().mean()))
+            ours, torchs, diff, same = timed[shape]
+            extra += calls * (ours - torchs) / steps
+            parts.append(f"{list(shape)} x{calls}: bit-equal to the CPU's, {ours:.3f} ms "
+                         f"against torch.erfinv "
+                         f"{torchs:.3f} ms (max |diff| {diff:.2e}, bit-equal {same:.4f})")
+        print(f"[normal-cost] {path}, {steps} steps: " + ("; ".join(parts) or "no draws")
+              + f"; erfinv_xla costs {extra:.3f} ms/step more, {100 * extra / step_ms:.3f}% "
+              f"of its {step_ms:.3f} ms/step")
 
 
 def phase_path_indices(label: str, captured: dict):
@@ -1383,6 +1484,277 @@ def phase_resume(cs_full, argv, steps: int = 12):
     shutil.rmtree(RUNNER_DIR)
 
 
+# The two option sets beyond the em_uniform and CARES paths, each built by
+# ``run.build_model`` (tests/test_torch_options_coupled.py holds one step of
+# each against the JAX package):
+# - mesoscale: the runner's em_uniform model (2 km, dt 10 s, live dynamics,
+#   the runner's particle physics, chemistry off) with the YSU surface layer
+#   and PBL, the slab LSM, Dudhia and gray radiation, WSM5 (5 moist species),
+#   BMJ and sea salt, on a sounding saturated over water (at most 15 g/kg).
+#   That sounding is no published case: it opens BMJ's and WSM5's gates in
+#   every column, so the path's physics split is their all-columns cost;
+# - les: tests/test_les.py's convective LES (dx 50 m, ztop 800 m, dt 0.25 s)
+#   with the prognostic TKE closure, the NBA stresses, WENO5/WENO3 and
+#   Kessler, from the test's warm bubble with near-surface noise, with the
+#   warm_bubble case's particles; no emission (its dist is empty) and the
+#   runner's 60 s coagulation cadence.
+# For each: the full-width shape and the card-against-CPU shape.
+OPTION_SETS = {"mesoscale": ((40, 40, 10), (12, 12, 4)), "les": ((40, 40, 16), (12, 12, 8))}
+RH_MESOSCALE, QV_MAX_MESOSCALE = 1.0, 0.015
+
+
+def option_config(name: str, nx: int, ny: int, nz: int, n_part: int, cap: int):
+    """The ``Config`` of option set ``name`` at nx x ny x nz cells."""
+    from wrf_partmc_tpu_torch.config import (BoundaryConfig, Config, DomainConfig,
+                                             DynamicsConfig, PartmcConfig, validate_config)
+
+    particles = dict(num_particles=n_part, max_particles=cap, n_emit_slots=4,
+                     partmc_chem_dt=60.0, do_coagulation=True, do_emission=True,
+                     do_deposition=True, do_transport=True, do_mosaic=False)
+    periodic = BoundaryConfig(periodic_x=True, periodic_y=True)
+    if name == "mesoscale":
+        return validate_config(Config(
+            domain=DomainConfig(nx=nx, ny=ny, nz=nz, dx=2000.0, dy=2000.0),
+            dynamics=DynamicsConfig(dt=10.0, chem_adv_opt="mono", moist_adv_opt="pd",
+                                    diff_opt=0, km_opt=4, bl_physics=1,
+                                    sf_surface_physics=1, ra_physics=1, mp_physics=2,
+                                    cu_physics=2),
+            boundary=periodic, partmc=PartmcConfig(seasalt_param=1, **particles), n_moist=5))
+    return validate_config(Config(
+        domain=DomainConfig(nx=nx, ny=ny, nz=nz, dx=50.0, dy=50.0, ztop=800.0),
+        dynamics=DynamicsConfig(dt=0.25, n_sound=4, dyn_opt="arw", damp_opt=1, zdamp=200.0,
+                                sfs_opt=1, diff_opt=2, km_opt=2, h_adv_order="weno5",
+                                v_adv_order="weno3", mp_physics=1),
+        boundary=periodic, partmc=PartmcConfig(**dict(particles, do_emission=False))))
+
+
+def humid_sounding(dyn, grid, rh: float = RH_MESOSCALE, q_max: float = QV_MAX_MESOSCALE):
+    """``dyn`` with qv = ``rh`` times the saturation mixing ratio over water
+    at its temperature and pressure, at most ``q_max`` (the mass and
+    geopotential are not rebalanced: the first acoustic substeps adjust to
+    the water's weight)."""
+    import torch
+
+    from wrf_partmc_tpu_torch.models.dycore.state import replace, temperature, total_pressure
+    from wrf_partmc_tpu_torch.models.physics.thermo import saturation_mixing_ratio
+
+    qsat = saturation_mixing_ratio(temperature(dyn, grid), total_pressure(dyn, grid))
+    moist = dyn.moist.clone()
+    moist[0] = torch.clamp(rh * qsat, max=q_max)
+    return replace(dyn, moist=moist)
+
+
+def les_initial_dyn(cfg, grid):
+    """tests/test_les.py's dry warm bubble (1 K at 150 m, radius 120 m) with
+    0.2 K normal noise in the two lowest levels (``rng.normal`` on key 0,
+    the draw ``jax.random.normal`` makes there)."""
+    from wrf_partmc_tpu_torch.models.dycore.ideal import init_warm_bubble_arw
+    from wrf_partmc_tpu_torch.models.dycore.state import replace
+    from wrf_partmc_tpu_torch.utils import rng
+
+    s = init_warm_bubble_arw(cfg, grid, d_theta=1.0, z_center=150.0, z_radius=120.0)
+    thp = s.theta_p.clone()
+    thp[:2] = thp[:2] + rng.normal(rng.key(0), (2, grid.ny, grid.nx), thp.device) * 0.2
+    return replace(s, theta_p=thp)
+
+
+def build_option_set(name: str, nx: int, ny: int, nz: int, n_part: int, cap: int,
+                     device="cuda"):
+    """Option set ``name`` through ``run.build_model`` (the uniform case for
+    mesoscale, warm_bubble for les), its initial dycore state replaced by
+    the set's: -> (CoupledModel, CoupledState)."""
+    import dataclasses
+
+    from wrf_partmc_tpu_torch import run
+
+    cfg = option_config(name, nx, ny, nz, n_part, cap)
+    case = "uniform" if name == "mesoscale" else "warm_bubble"
+    model, state = run.build_model(cfg, case, device=device)
+    dyn = (humid_sounding(state.dyn, model.grid) if name == "mesoscale"
+           else les_initial_dyn(cfg, model.grid))
+    return model, dataclasses.replace(state, dyn=dyn)
+
+
+def lift_tails(state, frac: float = 1e-6):
+    """``state`` with every particle's number lifted to at least ``frac`` of
+    the largest: the em_uniform blob's tails fall to 1e-14 of its peak,
+    where the monotonic limiter's outflow probabilities are round-off that
+    differs between the card and the CPU (tests/test_torch_options_coupled.py
+    starts from the same lift)."""
+    import dataclasses
+
+    import torch
+
+    num = state.aero.num
+    lifted = torch.where(num > 0, torch.clamp(num, min=frac * float(num.max())), num)
+    return dataclasses.replace(state, aero=dataclasses.replace(state.aero, num=lifted))
+
+
+def phase_card_vs_cpu_options():
+    """One step of each option set on the card against the same step on the
+    CPU, by ``compare_card_cpu``: the mesoscale set (YSU, slab LSM, Dudhia
+    and gray radiation, WSM5, BMJ, sea salt) at 12x12x4 with the slab
+    LSM's temperatures to rtol 1e-5 (the JAX parity rule of
+    tests/test_torch_options_coupled.py), the LES set (TKE, NBA, WENO5/3,
+    Kessler) at 12x12x8 with its TKE among the dycore fields and a floor of
+    5e-4 of each field's scale, as tests/test_torch_options_coupled.py holds
+    it against the JAX package: the weak bubble leaves the reference's own
+    jit-against-eager spread of one dycore step at 3.8e-4 of the scale of
+    p'."""
+    import torch
+
+    for name, (_, small) in OPTION_SETS.items():
+        model, state = build_option_set(name, *small, n_part=16, cap=32, device="cpu")
+        if name == "mesoscale":
+            state = lift_tails(state)
+        out_cpu = model(state)
+        out_gpu = model.to("cuda")(state.to("cuda")).to("cpu")
+        tag = f"card vs CPU, {name} options"
+        line = compare_card_cpu(tag, out_gpu, out_cpu, floor=5e-4 if name == "les" else 1e-4)
+        extra = ""
+        if name == "mesoscale":
+            for f in ("tsk", "t_deep"):
+                a, b = getattr(out_gpu.land, f), getattr(out_cpu.land, f)
+                require(torch.allclose(a, b, rtol=1e-5, atol=0.0),
+                        f"{tag}: land.{f} max diff {float((a - b).abs().max())}")
+                extra += f"land.{f} max diff {float((a - b).abs().max()):.2e}; "
+        print(f"[card-vs-cpu-{name}] {'x'.join(map(str, small))}, 16/cell: {extra}{line}")
+
+
+def split_sites():
+    """The coupled step's sections for a synced split: (module, attribute,
+    label); a label with "/" is timed inside the section before it."""
+    from wrf_partmc_tpu_torch.models.coupled import driver
+    from wrf_partmc_tpu_torch.models.dycore import arw, solve
+
+    d = driver
+    return ((d, "partmc_to_wrf", "partmc_to_wrf"), (d, "solve_step", "dycore"),
+            (arw, "nba_stress_tendencies", "dycore/NBA stresses"),
+            (solve, "tke_advance", "dycore/TKE advance"),
+            (arw, "kessler_step", "dycore/Kessler"), (arw, "wsm5_step", "dycore/WSM5"),
+            (d, "surface_layer", "YSU surface layer"), (d, "pbl_height", "YSU PBL height"),
+            (d, "ysu_exch_h", "YSU exch_h"),
+            (d, "vertical_diffusion_state", "vertical diffusion (K1)"),
+            (d, "make_env", "env"), (d, "emission_step", "emission"),
+            (d, "sample_seasalt", "emission/sea-salt sample"),
+            (d, "add_particles", "emission/sea-salt add"),
+            (d, "microphysics_step", "coagulation macro-step"), (d, "bmj_step", "BMJ"),
+            (d, "radiation_driver", "radiation"), (d, "slab_lsm_step", "slab LSM"),
+            (d, "transport_step", "transport"), (d, "surface_deposition", "deposition"),
+            (d, "rebalance", "rebalance"))
+
+
+def synced_split(model, state, steps: int, name: str):
+    """``steps`` steps with ``torch.cuda.synchronize()`` around every section
+    of ``split_sites``: the ms a step of each, the synced step, and what the
+    sections saw (the BMJ rain, the sea-salt number added per level)."""
+    import torch
+
+    acc, calls, seen = {}, {}, {"rain": [], "seasalt": []}
+
+    def hook(label, fn, args, kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        acc[label] = acc.get(label, 0.0) + time.perf_counter() - t0
+        calls[label] = calls.get(label, 0) + 1
+        if label == "BMJ":
+            seen["rain"].append(out[1].detach().clone())
+        elif label == "emission/sea-salt add":
+            num = args[2]                       # [nz, ny, nx, E]
+            seen["seasalt"].append(num.sum(dim=(1, 2, 3)).detach().clone())
+        return out
+
+    restore = patch_sites(split_sites(), hook)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state = model(state)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        restore()
+    ms = {k: 1e3 * v / steps for k, v in acc.items()}
+    top = sum(v for k, v in ms.items() if "/" not in k)
+    print(f"[{name}] synced split, {steps} steps: {1e3 * total / steps:.3f} ms/step; "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(ms.items(), key=lambda kv: -kv[1]))
+          + f"; the rest {1e3 * total / steps - top:.3f} (ms/step; calls "
+          + json.dumps(calls) + ")")
+    return state, calls, seen
+
+
+def phase_options_path(kernels: dict, name: str, n_timed: int = 6, n_split: int = 2):
+    """An option set at full width, 1000 particles per cell (capacity 1280):
+    a warm-up and ``n_timed`` timed steps with every kernel's launch count,
+    then ``n_split`` steps of a synced split.  The mesoscale set must rain
+    from BMJ, grow WSM5 ice and snow and add sea salt at level 0 only; the
+    LES set must run the TKE advance, the NBA stresses and Kessler."""
+    import torch
+
+    (nx, ny, nz), _ = OPTION_SETS[name]
+    t0 = time.perf_counter()
+    model, state = build_option_set(name, nx, ny, nz, n_part=1000, cap=1280, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[{name}] build {nx}x{ny}x{nz}, 1000/cell, cap 1280: "
+          f"{time.perf_counter() - t0:.3f} s, alive {int(state.aero.n_alive().sum())}")
+    by_caller, draws = {}, {}
+    restore = attribute_launches(by_caller, {}, rebalance=True)
+    restore_draws = record_normals(draws)
+    try:
+        state, warm, dt, launches, shapes = drive(model, state, n_timed)
+    finally:
+        restore_draws()
+        restore()
+    NORMAL_DRAWS[f"{name} options path"] = (draws, n_timed + 1, 1e3 * dt / n_timed)
+    cells = nx * ny * nz
+    alive = int(state.aero.n_alive().sum())
+    print(f"[{name}] warm-up step {1e3 * warm:.3f} ms; {n_timed} timed steps "
+          f"{1e3 * dt:.3f} ms = {1e3 * dt / n_timed:.3f} ms/step, "
+          f"{cells * n_timed / dt:.1f} cell-steps/s; alive {alive}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches {launches}; "
+          "transport diag " + json.dumps({k: float(v) for k, v in model.last_diag.items()}))
+    require_launched(kernels, f"launches_{name}", launches, f"{name} options path",
+                     n_timed + 1)
+    print(f"[{name}] kernel launches by caller: {json.dumps(by_caller)}")
+    state, calls, seen = synced_split(model, state, n_split, name)
+    dyn = state.dyn
+    for f in DYN_FIELDS:
+        require(bool(torch.isfinite(getattr(dyn, f)).all()), f"{name} path: dyn.{f} not finite")
+    require(bool(torch.isfinite(state.aero.num).all()), f"{name} path: num not finite")
+    require(tuple(state.aero.num.shape) == (nz, ny, nx, 1280), f"{name} path: num shape")
+    require(state.step == n_timed + 1 + n_split, f"{name} path: step count")
+    require(alive > 0, f"{name} path: no particle alive")
+    if name == "mesoscale":
+        require(bool(torch.isfinite(state.land.tsk).all()), "mesoscale path: tsk not finite")
+        ad = model.aero_data
+        salt = (state.aero.vol[..., ad.spec_by_name("Na"), :] > 0) & (state.aero.num > 0)
+        salt_num = torch.where(salt, state.aero.num, 0.0).sum(dim=(1, 2, 3))
+        added = torch.stack(seen["seasalt"]).sum(0)
+        rain = torch.stack(seen["rain"])
+        qi, qs = float(dyn.moist[3].max()), float(dyn.moist[4].max())
+        print(f"[{name}] sea salt added in {len(seen['seasalt'])} steps, number per level "
+              f"{[float(x) for x in added]}; Na+Cl particles' number per level after the "
+              f"path {[float(x) for x in salt_num]}; BMJ rain rate max "
+              f"{float(rain.max()):.4e} kg m-2 s-1, columns raining {int((rain[-1] > 0).sum())}; WSM5 qi max {qi:.4e}, "
+              f"qs max {qs:.4e} kg/kg; skin temperature "
+              f"{float(state.land.tsk.min()):.3f}-{float(state.land.tsk.max()):.3f} K")
+        require(float(added[0]) > 0.0, "mesoscale path: no sea salt added at level 0")
+        require(float(added[1:].abs().max()) == 0.0, "mesoscale path: sea salt added above level 0")
+        require(float(salt_num[0]) > 0.0, "mesoscale path: no sea-salt particle at level 0")
+        require(float(rain.max()) > 0.0, "mesoscale path: BMJ did not rain")
+        require(qi > 0.0 and qs > 0.0, "mesoscale path: WSM5 made no ice or no snow")
+    else:
+        for label in ("dycore/TKE advance", "dycore/NBA stresses", "dycore/Kessler"):
+            require(calls.get(label, 0) > 0, f"LES path: {label} did not run")
+        print(f"[{name}] tke {float(dyn.tke.min()):.4e}-{float(dyn.tke.max()):.4e} m2/s2, "
+              f"max |w| {float(dyn.w.abs().max()):.4f} m/s, theta' "
+              f"{float(dyn.theta_p.min()):.4f}-{float(dyn.theta_p.max()):.4f} K")
+        require(float(dyn.tke.max()) > model.cfg.dynamics.tke_seed, "LES path: no TKE grew")
+    return shapes
+
+
 def _free():
     import gc
 
@@ -1444,6 +1816,13 @@ def main() -> int:
         phase_path_shapes("runner path", kernels, shapes)
         phase_resume(cs_full, argv)
         del cs_full
+        _free()
+        phase_card_vs_cpu_options()
+        for name in OPTION_SETS:
+            shapes = phase_options_path(kernels, name)
+            _free()
+            phase_path_shapes(f"{name} options path", kernels, shapes)
+        phase_normal_cost()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -25,9 +25,13 @@ import numpy as np
 import pytest
 import torch
 
+from wrf_partmc_tpu_torch import run as prun
 from wrf_partmc_tpu_torch.cares import build_cares_shape
+from wrf_partmc_tpu_torch.config import (DomainConfig, PartmcConfig, uniform_test_config,
+                                         validate_config)
 from wrf_partmc_tpu_torch.convert import config_from_reference, from_numpy, to_numpy
 from wrf_partmc_tpu_torch.models.coupled.driver import CoupledModel, check_supported
+from wrf_partmc_tpu_torch.utils.tree import tensor_leaves
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                                 "tools"))
@@ -163,7 +167,7 @@ def test_open_boundary_run_stays_finite():
     assert float(state.aero.total_num().sum()) > 0.0 and state.step == 20
 
 
-UNPORTED = {
+OPTIONS = {
     "seasalt": dict(partmc=dict(seasalt_param=1)),
     "sfs_opt=1": dict(dynamics=dict(sfs_opt=1)),
     "km_opt=2 with diff_opt=2": dict(dynamics=dict(diff_opt=2, km_opt=2)),
@@ -171,17 +175,42 @@ UNPORTED = {
     "YSU": dict(dynamics=dict(bl_physics=1)),
     "BMJ": dict(dynamics=dict(cu_physics=2)),
     "Kessler": dict(dynamics=dict(mp_physics=1)),
-    "WSM5": dict(dynamics=dict(mp_physics=2)),
+    "WSM5": dict(dynamics=dict(mp_physics=2), n_moist=5),
+}
+UNPORTED = {
     "linear core": dict(dynamics=dict(dyn_opt="linear")),
 }
 
 
+def _with(cfg, groups):
+    return cfg.replace(**{g: dataclasses.replace(getattr(cfg, g), **kw) if isinstance(kw, dict)
+                          else kw for g, kw in groups.items()})
+
+
+@pytest.mark.parametrize("case", sorted(OPTIONS))
+def test_option_builds_and_steps(case):
+    """Each option the port once refused builds with the runner's em_uniform
+    case at 6x6x4 (live dynamics, emission on, 4 particles per cell) on the
+    CPU and takes one step to finite fields."""
+    base = uniform_test_config(
+        domain=DomainConfig(nx=6, ny=6, nz=4, dx=2000.0, dy=2000.0, ztop=4000.0),
+        partmc=PartmcConfig(num_particles=4, max_particles=12, n_emit_slots=2,
+                            do_coagulation=False, do_emission=True, do_mosaic=False))
+    base = base.replace(dynamics=dataclasses.replace(base.dynamics, constant_velocity=False))
+    cfg = validate_config(_with(base, OPTIONS[case]))
+    check_supported(cfg)
+    model, state = prun.build_model(cfg, "uniform", device="cpu")
+    state = model(state)
+    assert state.step == 1
+    for a in tensor_leaves(state, "state").values():
+        if a.is_floating_point():
+            assert bool(torch.isfinite(a).all()), case
+
+
 @pytest.mark.parametrize("case", sorted(UNPORTED))
 def test_check_supported_refuses_unported(runs, case):
-    cfg = runs[2].cfg
-    groups = {g: dataclasses.replace(getattr(cfg, g), **kw) for g, kw in UNPORTED[case].items()}
     with pytest.raises(NotImplementedError, match="not ported"):
-        check_supported(cfg.replace(**groups))
+        check_supported(_with(runs[2].cfg, UNPORTED[case]))
 
 
 def test_check_supported_accepts_cares(runs):

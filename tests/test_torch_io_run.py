@@ -215,11 +215,24 @@ def test_default_device_is_cuda():
         prun.build_model(config_from_reference(_small_cfg()))
 
 
-def test_weno_namelist_refused_at_build(tmp_path):
+def test_weno_namelist_builds_and_steps(tmp_path):
+    """chem_adv_opt = 3 selects WENO5/WENO3 with the PD limiter; the runner
+    builds it and steps it to finite fields."""
     p = tmp_path / "namelist.input"
     p.write_text(NAMELIST.replace("chem_adv_opt   = 2", "chem_adv_opt   = 3"))
-    with pytest.raises(NotImplementedError, match="WENO"):
-        prun.main(["--namelist", str(p), "--device", "cpu", "--outdir", str(tmp_path)])
+    seen = []
+
+    def configure(cfg):
+        seen.append(cfg)
+        return cfg
+
+    cs, _ = prun.main(["--namelist", str(p), "--device", "cpu", "--steps", "1",
+                       "--outdir", str(tmp_path / "out")], configure=configure)
+    d = seen[0].dynamics
+    assert (d.h_adv_order, d.v_adv_order, d.chem_adv_opt) == ("weno5", "weno3", "pd")
+    assert cs.step == 1
+    for a in (cs.dyn.u, cs.dyn.theta_p, cs.dyn.num_conc, cs.aero.num):
+        assert bool(torch.isfinite(a).all())
 
 
 # --- writers against the JAX writers ------------------------------------------

@@ -52,10 +52,10 @@ def _system(g, cshape, cuda):
     return dl, d, du
 
 
-# the levels of every path (4 Noah, 9/10 em_uniform, 23/24 CARES), the
-# bucket edges, the full CARES grid's 65 and a column longer than one
-# shared-memory window (96 levels)
-LEVELS = [1, 2, 4, 9, 10, 17, 23, 24, 25, 32, 33, 65, 200]
+# the levels of every path (4 Noah, 9/10 em_uniform, 15/16 LES, 23/24
+# CARES), the bucket edges, the full CARES grid's 65 and a column longer
+# than one shared-memory window (96 levels)
+LEVELS = [1, 2, 4, 9, 10, 15, 16, 17, 23, 24, 25, 32, 33, 65, 200]
 
 
 @pytest.mark.parametrize("n", LEVELS)
@@ -73,11 +73,14 @@ def test_thomas_kernel_bit_exact(cuda, n, broadcast):
     assert torch.equal(x, tridiag.solve_scan(dl, d, du, b))
 
 
-# (n, field shapes): one field; vertical diffusion's six at the em_uniform
-# and CARES levels; eight of mixed L with a transposed stack and a
-# level-sliced view, at a register bucket and at the window
+# (n, field shapes): one field; vertical diffusion's six at the em_uniform,
+# mesoscale-options (WSM5's 5 moist), LES and CARES levels; eight of mixed
+# L with a transposed stack and a level-sliced view, at a register bucket
+# and at the window
 FIELDS = [(10, ["3"]),
           (10, ["1", "1", "1", "3", "32", "1"]),
+          (10, ["1", "1", "1", "5", "32", "1"]),
+          (16, ["1", "1", "1", "3", "32", "1"]),
           (24, ["1", "1", "1", "10", "77", "1"]),
           (9, ["1", "2", "T3", "S", "5", "1", "4", "1"]),
           (65, ["1", "2", "T3", "S", "5", "1", "4", "1"])]

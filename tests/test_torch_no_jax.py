@@ -31,5 +31,9 @@ def test_port_imports_no_jax():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "wrf_partmc_tpu_torch.entry" in out["modules"]
     assert "wrf_partmc_tpu_torch.models.coupled.driver" in out["modules"]
+    for m in ("models.partmc.seasalt", "models.physics.surface",
+              "models.physics.cumulus", "models.physics.sfs_nba",
+              "models.physics.scm_forcing"):
+        assert "wrf_partmc_tpu_torch." + m in out["modules"], m
     assert out["jax"] == []
     assert out["reference"] == []

@@ -2,12 +2,16 @@
 
 key / fold_in / split / uniform / randint must be bitwise equal (pure
 integer hashing, then an exact bit-to-float map).  normal goes through
-erfinv, whose torch and XLA implementations differ in the last ulps (more
-in the tails, where erfinv is ill-conditioned); the tolerance is 1e-5
-relative plus 1e-6 absolute, far below any physically meaningful size
-difference.  categorical must pick the same
+``rng.erfinv_xla``, the float32 erfinv of XLA-CPU (its log, log1p and fused
+multiply-adds reproduced op for op), and must be bitwise equal too; its
+draws must not depend on the thread count, on where a thread's chunk
+starts, or on which process draws them.  categorical must pick the same
 category at these sizes (no flips).
 """
+
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -62,6 +66,57 @@ def test_normal_within_ulps():
     a = np.asarray(jax.random.normal(k, (20000,)))
     b = rng.normal(kd(k), (20000,), "cpu").numpy()
     np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 21, 7777])
+def test_normal_bitwise(seed):
+    """Every one of 200,000 draws bit-equal to jax.random.normal (both
+    erfinv branches: w >= 5 holds for |u| > 0.9966, ~0.3% of draws)."""
+    k = jax.random.key(seed)
+    a = np.asarray(jax.random.normal(k, (200_000,)))
+    b = rng.normal(kd(k), (200_000,), "cpu").numpy()
+    share = np.mean(a.view(np.int32) == b.view(np.int32))
+    assert share == 1.0, share
+
+
+def test_erfinv_xla_chunk_invariant():
+    """The same inputs give the same bits at any thread count and at any
+    offset into the tensor (vector bodies and scalar tails fall on other
+    elements)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = rng.uniform((0, 99), (100_003,), "cpu", lo, 1.0)
+    ref = rng.erfinv_xla(u).numpy().view(np.int32)
+    n0 = torch.get_num_threads()
+    try:
+        for nt in (1, 2, 3, 5):
+            torch.set_num_threads(nt)
+            np.testing.assert_array_equal(rng.erfinv_xla(u).numpy().view(np.int32), ref)
+    finally:
+        torch.set_num_threads(n0)
+    for off in (1, 3, 7, 13):
+        np.testing.assert_array_equal(
+            rng.erfinv_xla(u[off:].clone()).numpy().view(np.int32), ref[off:])
+
+
+_DRAW = ("import hashlib, sys, torch; torch.set_num_threads(int(sys.argv[1]));"
+         "from wrf_partmc_tpu_torch.utils import rng;"
+         "z = rng.normal((0, 4321), (200000,), 'cpu');"
+         "print(hashlib.sha256(z.numpy().tobytes()).hexdigest())")
+
+
+def normal_digests(n_proc: int):
+    """sha256 of the same 200,000 normals drawn by ``n_proc`` processes
+    started together, each with its own thread count."""
+    procs = [subprocess.Popen([sys.executable, "-c", _DRAW, str(1 + i % 4)],
+                              stdout=subprocess.PIPE, text=True,
+                              cwd=Path(__file__).resolve().parents[1])
+             for i in range(n_proc)]
+    return [p.communicate(timeout=120)[0].strip() for p in procs]
+
+
+def test_normal_bits_equal_across_processes():
+    digests = normal_digests(8)
+    assert len(digests[0]) == 64 and len(set(digests)) == 1, digests
 
 
 @pytest.mark.parametrize("m", [1, 2, 6])

@@ -1,19 +1,20 @@
 """The coupled WRF-PartMC timestep.
 
 Port of the single-device path of ``wrf_partmc_tpu/models/coupled/driver.py``
-(``mesh=None``): partmc_to_wrf -> ARW dycore (with Morrison microphysics
-for mp_physics=10) -> specified + relaxation lateral boundaries (with a
-wrfbdy) -> MYJ surface layer and TKE PBL (bl_physics=2) -> implicit
-vertical diffusion -> partmc_from_wrf -> emission -> aerosol optics
+(``mesh=None``): partmc_to_wrf -> ARW dycore (with Kessler, WSM5 or
+Morrison microphysics for mp_physics 1/2/10) -> specified + relaxation
+lateral boundaries (with a wrfbdy) -> the surface layer and PBL (YSU for
+bl_physics=1, MYJ TKE for 2) -> implicit vertical diffusion ->
+partmc_from_wrf -> emission and the sea-salt source -> aerosol optics
 (do_optical) -> the chemistry macro-step every ``partmc_chem_dt``
 (nucleation, coagulation, MOSAIC with the aerosol-attenuated photolysis,
-condensation) -> Grell cumulus (cu_physics=5) -> radiation and the land
-surface (ra_physics 1/4, sf_surface_physics 1/2) -> stochastic transport
--> open-boundary inflow resampling and gas BCs -> surface deposition ->
-rebalance.  With ``record_removals`` the state carries the represented
-number each number-decreasing process removed, per cell and cause; with
-``record_aero_info`` a chemistry step also returns the coagulation removal
-records (``coag_step(return_events=True)``).
+condensation) -> cumulus (BMJ for cu_physics=2, Grell for 5) -> radiation
+and the land surface (ra_physics 1/4, sf_surface_physics 1/2) ->
+stochastic transport -> open-boundary inflow resampling and gas BCs ->
+surface deposition -> rebalance.  With ``record_removals`` the state carries
+the represented number each number-decreasing process removed, per cell and
+cause; with ``record_aero_info`` a chemistry step also returns the
+coagulation removal records (``coag_step(return_events=True)``).
 
 :class:`CoupledModel` holds the static tables (grid metrics, ``AeroData``,
 ``GasData``, the CBM-Z ``Mechanism``, ``Scenario``, ``exch_h``, the wrfbdy
@@ -45,7 +46,7 @@ from ...utils.tree import tensor_leaves, tree_map, with_leaves
 from ..dycore.solve import solve_step
 from ..dycore.state import DycoreState, base_profiles, temperature, total_pressure
 from ..partmc.aero_data import AeroData, particle_mass, particle_volume
-from ..partmc.aero_state import AeroState, rebalance, zero_state
+from ..partmc.aero_state import AeroState, add_particles, rebalance, zero_state
 from ..partmc.cbmz import Mechanism, build_mechanism, solar_cos_zenith
 from ..partmc.coag import coag_step
 from ..partmc.condense import condense_dynamic, equilib_water_hyst
@@ -56,12 +57,15 @@ from ..partmc.mosaic import mosaic_timestep
 from ..partmc.nucleate import nucleate_step
 from ..partmc.optics import bulk_optical_props
 from ..partmc.scenario import Scenario, update_aero_state, update_gas_state
+from ..partmc.seasalt import sample_seasalt
 from ..partmc.simple_chem import chem_step
+from ..physics.cumulus import bmj_step
 from ..physics.grell import grell_step
 from ..physics.lsm import (LandState, NoahState, init_land, init_noah, noah_lsm_step,
                            slab_lsm_step)
 from ..physics.myj import init_q2, myj_surface_layer, myj_tke_step
 from ..physics.radiation import photolysis_aerosol_factor, radiation_driver
+from ..physics.surface import pbl_height, surface_layer, ysu_exch_h
 from ..physics.thermo import relative_humidity
 from .bdy import BdyData, apply_specified_relax, zone_weights
 from .boundary import apply_gas_open_bc, resample_inflow_particles
@@ -141,15 +145,32 @@ def partmc_from_wrf(dyn: DycoreState) -> torch.Tensor:
 
 
 def emission_step(aero: AeroState, gas, env: EnvState, aero_data: AeroData,
-                  scn: Scenario, cfg: Config, t, key):
-    """Per-dt scenario forcing (emission on): gas emission/dilution and
-    aerosol emission/dilution."""
+                  scn: Scenario, cfg: Config, grid: Grid, dyn: DycoreState, t, key):
+    """Per-dt scenario forcing: gas emission/dilution, aerosol
+    emission/dilution (``do_emission``) and the sea-salt surface source
+    (``seasalt_param``), which emits into level 0 only from the cell-centred
+    first-level wind of ``dyn``."""
     pc = cfg.partmc
     dt = cfg.dynamics.dt
-    k_scn, _k_ss = rng.split(key)
+    k_scn, k_ss = rng.split(key)
     gas = update_gas_state(scn, gas, t, dt)
-    aero = update_aero_state(scn, aero, aero_data, t, dt, k_scn,
-                             pc.n_emit_slots, env.cell_volume)
+    if pc.do_emission:
+        aero = update_aero_state(scn, aero, aero_data, t, dt, k_scn,
+                                 pc.n_emit_slots, env.cell_volume)
+    if pc.seasalt_param > 0:
+        u_c = 0.5 * (dyn.u[0] + shift(dyn.u[0], 1, AXIS_X))
+        v_c = 0.5 * (dyn.v[0] + shift(dyn.v[0], 1, AXIS_Y))
+        u10 = torch.sqrt(u_c ** 2 + v_c ** 2)                   # [ny, nx]
+        cell_shape = aero.cell_shape
+        spume = pc.seasalt_class_spume if pc.seasalt_class_spume >= 0 else None
+        vol, num, src, wcl = sample_seasalt(
+            k_ss, aero_data, u10.expand(cell_shape), grid.dx * grid.dy, dt,
+            pc.n_emit_slots, cell_shape, param=pc.seasalt_param,
+            source=pc.seasalt_source,
+            w_class=min(cfg.n_class - 1, pc.seasalt_class_film),
+            w_class_spume=spume)
+        k0 = torch.arange(num.shape[0], device=num.device).reshape(-1, 1, 1, 1) == 0
+        aero = add_particles(aero, vol, torch.where(k0, num, 0.0), src, wcl, time=t)
     return aero, gas
 
 
@@ -228,22 +249,11 @@ def surface_deposition(aero: AeroState, env: EnvState, aero_data: AeroData,
 
 
 def check_supported(cfg: Config) -> None:
-    """Refuse configurations whose code paths are not ported yet."""
-    d, p = cfg.dynamics, cfg.partmc
-    off = {
-        "partmc.seasalt_param": p.seasalt_param,
-        "dynamics.sfs_opt=1 (NBA subfilter stress)": d.sfs_opt == 1,
-        "dynamics.km_opt=2 with diff_opt=2 (prognostic TKE)": d.km_opt == 2 and d.diff_opt == 2,
-        "dynamics WENO advection orders": isinstance(d.h_adv_order, str)
-                                          or isinstance(d.v_adv_order, str),
-        "dynamics.bl_physics=1 (YSU)": d.bl_physics == 1,
-        "dynamics.cu_physics=2 (BMJ)": d.cu_physics == 2,
-        "dynamics.mp_physics=1/2 (Kessler/WSM5)": d.mp_physics in (1, 2),
-        "dynamics.dyn_opt != 'arw'": d.dyn_opt != "arw",
-    }
-    bad = [name for name, on in off.items() if on]
-    if bad:
-        raise NotImplementedError("not ported yet: " + ", ".join(bad))
+    """Refuse the linear core, the one option of the reference's step that
+    the port does not carry."""
+    if cfg.dynamics.dyn_opt != "arw":
+        raise NotImplementedError("not ported: dynamics.dyn_opt != 'arw' "
+                                  "(the linear core)")
 
 
 def _season(cfg: Config) -> str:
@@ -291,10 +301,11 @@ def coupled_step(cs: CoupledState, grid: Grid, cfg: Config,
         dyn2 = apply_specified_relax(dyn2, bdy, t, grid, cfg, bdy_w2)
     aero = cs.aero
 
-    # MYJ surface layer + TKE PBL: replace the prescribed exch_h and u*
+    # surface layer + PBL (YSU for bl_physics=1, MYJ TKE for 2): replace
+    # the prescribed exch_h and u*
     sfc_ustar = sfc_rmol = None
     q2_new = cs.pbl_q2
-    if dy.bl_physics == 2:
+    if dy.bl_physics in (1, 2):
         theta = grid.t_base.reshape(-1, 1, 1) + dyn2.theta_p
         u1 = 0.5 * (dyn2.u[0] + shift(dyn2.u[0], 1, AXIS_X))
         v1 = 0.5 * (dyn2.v[0] + shift(dyn2.v[0], 1, AXIS_Y))
@@ -304,9 +315,16 @@ def coupled_step(cs: CoupledState, grid: Grid, cfg: Config,
             thsfc = theta[0] + dy.sfc_heat_excess * torch.clamp(cosz, min=-0.25)
         u3 = 0.5 * (dyn2.u + shift(dyn2.u, 1, AXIS_X))
         v3 = 0.5 * (dyn2.v + shift(dyn2.v, 1, AXIS_Y))
-        sfc = myj_surface_layer(u1, v1, theta[0], thsfc, grid.z_half[0], z0=dy.sfc_z0)
-        q2_new, exch_h, _exch_m = myj_tke_step(cs.pbl_q2, theta, u3, v3, grid,
-                                               sfc["ustar"], dt)
+        if dy.bl_physics == 1:
+            sfc = surface_layer(u1, v1, theta[0], thsfc, grid.z_half[0], z0=dy.sfc_z0)
+            h_pbl = pbl_height(theta, grid.z_half, u=u3, v=v3)
+            exch_h = ysu_exch_h(grid, sfc["ustar"], sfc["rmol"], h_pbl,
+                                hfx_kin=sfc["hfx_kin"], theta=theta, u=u3, v=v3)
+        else:
+            sfc = myj_surface_layer(u1, v1, theta[0], thsfc, grid.z_half[0],
+                                    z0=dy.sfc_z0)
+            q2_new, exch_h, _exch_m = myj_tke_step(cs.pbl_q2, theta, u3, v3, grid,
+                                                   sfc["ustar"], dt)
         sfc_ustar, sfc_rmol = sfc["ustar"], sfc["rmol"]
 
     if dy.vert_diff_fields and not dy.constant_velocity:
@@ -321,10 +339,10 @@ def coupled_step(cs: CoupledState, grid: Grid, cfg: Config,
     if sfc_ustar is not None:
         env = dataclasses.replace(env, ustar=sfc_ustar.expand(env.temp.shape))
 
-    if pc.do_emission:
+    if pc.do_emission or pc.seasalt_param > 0:
         a0 = aero
-        aero, gas = emission_step(aero, gas, env, aero_data, scn, cfg, t,
-                                  keys[rng.STREAM_EMISSION])
+        aero, gas = emission_step(aero, gas, env, aero_data, scn, cfg, grid, dyn2,
+                                  t, keys[rng.STREAM_EMISSION])
         record("dilution", a0, aero)
     else:
         gas = update_gas_state(scn, gas, t, dt)
@@ -357,7 +375,9 @@ def coupled_step(cs: CoupledState, grid: Grid, cfg: Config,
             tdiag["coag_removed_id"] = events["removed_id"]
             tdiag["coag_other_id"] = events["other_id"]
 
-    if dy.cu_physics == 5:
+    if dy.cu_physics == 2:
+        dyn2, _rainc = bmj_step(dyn2, grid, dt)
+    elif dy.cu_physics == 5:
         dyn2, _rainc = grell_step(dyn2, grid, dt)
 
     land2 = cs.land

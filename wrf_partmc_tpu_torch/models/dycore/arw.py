@@ -20,7 +20,9 @@ from ...grid import Grid
 from ...ops.advection import face_fluxes, flux_divergence
 from ...ops.stencil import AXIS_X, AXIS_Y, shift
 from ...ops.tridiag import solve as tridiag_solve
+from ..physics.microphysics import kessler_step, wsm5_step
 from ..physics.morrison import morrison_step
+from ..physics.sfs_nba import nba_stress_tendencies
 from .solve import bc_pair, horizontal_k, laplacian_h
 from .state import DycoreState, replace
 
@@ -150,8 +152,6 @@ class _ArwTend:
 
 def _slow_tendencies(s: DycoreState, grid: Grid, cfg: Config) -> _ArwTend:
     dyn = cfg.dynamics
-    if dyn.sfs_opt:
-        raise NotImplementedError("sfs_opt (NBA subfilter stress) is not ported")
     bx, by = bc_pair(cfg)
     rdx, rdy = grid.rdx, grid.rdy
     rdeta = 1.0 / grid.deta
@@ -255,6 +255,14 @@ def _slow_tendencies(s: DycoreState, grid: Grid, cfg: Config) -> _ArwTend:
         adv_V = adv_V + mu_v * kh * msq_v * laplacian_h(s.v, rdx, rdy, bx, by)
         adv_T = adv_T + mu_d[None] * kh * msq * laplacian_h(theta, rdx, rdy,
                                                             bx, by)
+
+    # NBA1 nonlinear subfilter stress (sfs_opt=1) on top of the linear
+    # closure
+    if dyn.sfs_opt == 1:
+        du, dv, dw = nba_stress_tendencies(u_c, v_c, _avg_fz(s.w), grid, bx, by)
+        adv_U = adv_U + mu_u * _avg_xf(du, bx)
+        adv_V = adv_V + mu_v * _avg_yf(dv, by)
+        R_W = R_W + _zero_faces(mu_d[None] * _avg_zf(dw), grid.nz)
 
     return _ArwTend(U=adv_U - pgf_U + cor_U, V=adv_V - pgf_V + cor_V,
                     W=R_W, T=adv_T, PH=R_PH, mu_t=mu_t)
@@ -443,14 +451,12 @@ def dyn_step_arw(state: DycoreState, grid: Grid, cfg: Config):
 def solve_step_arw(state: DycoreState, grid: Grid, cfg: Config):
     """One full mass-coordinate dycore timestep: RK3 dynamics + mu-coupled
     scalar families advected with the acoustic-averaged fluxes, with
-    per-class flux capture, then the Morrison microphysics adjustment when
-    mp_physics=10.  Returns (new_state, StepDiag)."""
+    per-class flux capture, then the microphysics adjustment (Kessler,
+    WSM5 or Morrison for mp_physics 1/2/10).  Returns (new_state, StepDiag)."""
     from ...ops.advection import rk3_advect_mono, rk3_advect_pd
-    from .solve import StepDiag, smagorinsky_khh
+    from .solve import StepDiag, smagorinsky_khh, tke_advance
 
     dyn = cfg.dynamics
-    if dyn.mp_physics in (1, 2):
-        raise NotImplementedError("mp_physics 1/2 (Kessler/WSM5) is not ported")
     bx, by = bc_pair(cfg)
     rdeta = 1.0 / grid.deta
 
@@ -478,8 +484,9 @@ def solve_step_arw(state: DycoreState, grid: Grid, cfg: Config):
     num_conc, probs = adv(state.num_conc, dyn.chem_adv_opt)
 
     if dyn.diff_opt == 2 and dyn.km_opt == 2:
-        raise NotImplementedError("km_opt=2 (prognostic TKE) is not ported")
-    if dyn.diff_opt == 2:
+        tke_new, xkhh = tke_advance(new, grid, cfg, dyn.dt)
+        new = replace(new, tke=tke_new)
+    elif dyn.diff_opt == 2:
         xkhh = smagorinsky_khh(new, grid, cfg)
     else:
         xkhh = torch.full((grid.nz, grid.ny, grid.nx), dyn.khdif,
@@ -488,7 +495,11 @@ def solve_step_arw(state: DycoreState, grid: Grid, cfg: Config):
     new = replace(new, moist=moist, chem=chem, num_conc=num_conc)
     _, _, _, p_full, _, _, _ = diagnose(new, grid, cfg.n_moist_mass)
     new = replace(new, p_p=p_full - grid.p_base.reshape(-1, 1, 1))
-    if dyn.mp_physics == 10:
+    if dyn.mp_physics == 1:
+        new = kessler_step(new, grid, dyn.dt)
+    elif dyn.mp_physics == 2:
+        new = wsm5_step(new, grid, dyn.dt)
+    elif dyn.mp_physics == 10:
         new = morrison_step(new, grid, dyn.dt)
     return new, StepDiag(probs=probs, xkhh=xkhh, rho_u=U_avg, rho_v=V_avg,
                          rho_w=fzm_avg)

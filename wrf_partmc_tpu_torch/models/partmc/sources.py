@@ -1,6 +1,6 @@
 """Source / weight-class universe discovery (port of
 ``wrf_partmc_tpu/models/partmc/sources.py``): every named input becomes one
-source with its own weight class."""
+source with its own weight class, and sea salt appends its two classes."""
 
 from __future__ import annotations
 
@@ -9,6 +9,7 @@ from dataclasses import dataclass
 
 import torch
 
+SEASALT_CLASSES = ("seasalt_film", "seasalt_spume")   # the two sea-salt classes
 
 
 @dataclass(frozen=True)
@@ -20,14 +21,23 @@ class SourceUniverse:
     source_class: tuple
 
     @property
+    def n_source(self) -> int:
+        return len(self.sources)
+
+    @property
     def n_class(self) -> int:
         return len(self.classes)
 
+    def source_id(self, name: str) -> int:
+        return self.sources.index(name)
 
-def build_universe(ic=(), bc=(), emissions=()):
+
+def build_universe(ic=(), bc=(), emissions=(), seasalt: bool = False):
     """Register the sources of (name, AeroDist) inputs and rewrite each
-    dist's per-mode ``source``/``w_class`` ids.  Returns (universe, ic_dists,
-    bc_dists, emit_dists).  The sea-salt classes are not ported."""
+    dist's per-mode ``source``/``w_class`` ids.  With ``seasalt`` one
+    'seasalt' source is added with two weight classes, film ('seasalt') and
+    spume ('seasalt_spume'), split by size when sampled.  Returns
+    (universe, ic_dists, bc_dists, emit_dists)."""
     sources: list = []
     classes: list = []
     source_class: list = []
@@ -55,6 +65,10 @@ def build_universe(ic=(), bc=(), emissions=()):
     ic_d = assign(ic)
     bc_d = assign(bc)
     em_d = assign(emissions)
+    if seasalt:
+        sid = register("seasalt")
+        classes.append("seasalt_spume")
+        source_class[sid] = classes.index("seasalt")
     uni = SourceUniverse(sources=tuple(sources), classes=tuple(classes),
                          source_class=tuple(source_class))
     return uni, ic_d, bc_d, em_d

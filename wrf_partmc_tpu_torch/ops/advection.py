@@ -1,10 +1,10 @@
 """Finite-volume flux-form advection operators with flux capture.
 
 Port of ``wrf_partmc_tpu/ops/advection.py``: 1st-6th order upwind face
-fluxes, the positive-definite and monotonic (FCT) limited RK3 scalar
-updates, and the per-face outflow probabilities captured for the particle
-transport.  Arrays are [*, nz, ny, nx].  The WENO reconstructions are not
-ported yet (see ROADMAP).
+fluxes and the WENO5/WENO3 reconstructions, the positive-definite and
+monotonic (FCT) limited RK3 scalar updates, and the per-face outflow
+probabilities captured for the particle transport.  Arrays are
+[*, nz, ny, nx].
 """
 
 from __future__ import annotations
@@ -19,11 +19,71 @@ from .stencil import AXIS_X, AXIS_Y, AXIS_Z, make_taps, shift
 _HALF = {1: 1, 2: 1, 3: 2, 4: 2, 5: 3, 6: 3}
 
 
+def _weno_face_value(q, upwind_pos, order: int, axis: int, bc: str,
+                     eps: float = 1e-6):
+    """WENO reconstruction of q at the face between cells i-1 and i (Jiang &
+    Shu 1996), order 5 or 3.  ``upwind_pos``: True where the face velocity
+    is >= 0 (donor cell i-1); elsewhere the mirror stencil.  The
+    smoothness indicators are computed on the stencil divided by its largest
+    magnitude, so that the weights stay finite in float32 for fields of any
+    scale; the candidate polynomials use the raw values."""
+    half = 3 if order == 5 else 2
+    s = make_taps(q, -half, half - 1, axis, bc)
+
+    def weno5(qm3, qm2, qm1, q0, qp1):
+        scale = torch.maximum(torch.abs(qm3), torch.maximum(torch.abs(qm2),
+                torch.maximum(torch.abs(qm1), torch.maximum(torch.abs(q0),
+                torch.abs(qp1))))) + 1e-30
+        n3, n2, n1, n0, np1 = (v / scale for v in (qm3, qm2, qm1, q0, qp1))
+        b0 = (13.0 / 12.0) * (n3 - 2.0 * n2 + n1) ** 2 \
+            + 0.25 * (n3 - 4.0 * n2 + 3.0 * n1) ** 2
+        b1 = (13.0 / 12.0) * (n2 - 2.0 * n1 + n0) ** 2 \
+            + 0.25 * (n2 - n0) ** 2
+        b2 = (13.0 / 12.0) * (n1 - 2.0 * n0 + np1) ** 2 \
+            + 0.25 * (3.0 * n1 - 4.0 * n0 + np1) ** 2
+        a0 = 0.1 / (eps + b0) ** 2
+        a1 = 0.6 / (eps + b1) ** 2
+        a2 = 0.3 / (eps + b2) ** 2
+        asum = a0 + a1 + a2
+        p0 = (2.0 * qm3 - 7.0 * qm2 + 11.0 * qm1) / 6.0
+        p1 = (-qm2 + 5.0 * qm1 + 2.0 * q0) / 6.0
+        p2 = (2.0 * qm1 + 5.0 * q0 - qp1) / 6.0
+        return (a0 / asum) * p0 + (a1 / asum) * p1 + (a2 / asum) * p2
+
+    def weno3(qm2, qm1, q0):
+        scale = torch.maximum(torch.abs(qm2),
+                              torch.maximum(torch.abs(qm1), torch.abs(q0))) + 1e-30
+        n2, n1, n0 = qm2 / scale, qm1 / scale, q0 / scale
+        b0 = (n2 - n1) ** 2
+        b1 = (n1 - n0) ** 2
+        a0 = (1.0 / 3.0) / (eps + b0) ** 2
+        a1 = (2.0 / 3.0) / (eps + b1) ** 2
+        asum = a0 + a1
+        p0 = 1.5 * qm1 - 0.5 * qm2
+        p1 = 0.5 * (qm1 + q0)
+        return (a0 / asum) * p0 + (a1 / asum) * p1
+
+    if order == 5:
+        q_pos = weno5(s(-3), s(-2), s(-1), s(0), s(1))
+        q_neg = weno5(s(2), s(1), s(0), s(-1), s(-2))
+    elif order == 3:
+        q_pos = weno3(s(-2), s(-1), s(0))
+        q_neg = weno3(s(1), s(0), s(-1))
+    else:
+        raise ValueError(f"unsupported WENO order {order}")
+    return torch.where(upwind_pos, q_pos, q_neg)
+
+
 def _upwind_face_flux(q, vel_face, order, axis: int, bc: str):
     """Tracer flux through owner faces: F[i] = vel_face[i] * q at the face
-    between cells i-1 and i (even-order flux minus odd-order upwinding)."""
-    if isinstance(order, str) or order not in _HALF:
-        raise NotImplementedError(f"advection order {order!r} is not ported")
+    between cells i-1 and i (even-order flux minus odd-order upwinding, or
+    the WENO face value for ``order`` "weno5"/"weno3")."""
+    if isinstance(order, str):
+        if order not in ("weno5", "weno3"):
+            raise ValueError(f"unsupported advection order {order}")
+        return vel_face * _weno_face_value(q, vel_face >= 0.0, int(order[-1]), axis, bc)
+    if order not in _HALF:
+        raise ValueError(f"unsupported advection order {order}")
     s = make_taps(q, -_HALF[order], _HALF[order] - 1, axis, bc)
     u = vel_face
     au = torch.abs(vel_face)
@@ -65,10 +125,9 @@ def face_fluxes(q, rho_u, rho_v, rho_w, h_order: int, v_order: int,
     nz+1 w faces (zero at the surface and the top)."""
     fx = _upwind_face_flux(q, rho_u, h_order, AXIS_X, bc_x)
     fy = _upwind_face_flux(q, rho_v, h_order, AXIS_Y, bc_y)
-    if isinstance(v_order, str):
-        raise NotImplementedError(f"advection order {v_order!r} is not ported")
-    fz_low = _upwind_face_flux(q, rho_w[..., :-1, :, :], min(v_order, 3),
-                               AXIS_Z, "clamp")
+    # any WENO vertical order runs as weno3; upwind orders above 3 as 3
+    vo = "weno3" if isinstance(v_order, str) else min(v_order, 3)
+    fz_low = _upwind_face_flux(q, rho_w[..., :-1, :, :], vo, AXIS_Z, "clamp")
     fz = torch.cat([fz_low, torch.zeros_like(fz_low[..., :1, :, :])], dim=-3)
     return fx, fy, _zero_boundary_vertical_flux(fz)
 

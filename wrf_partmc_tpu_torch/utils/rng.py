@@ -109,13 +109,107 @@ def uniform(k: Key, shape, device, minval: float = 0.0,
     return torch.clamp(f * span + float(lo), min=float(lo))
 
 
+def _fma(a, b, c) -> torch.Tensor:
+    """float32 a * b + c with one rounding, as the fused multiply-add of
+    XLA-CPU's code: the float32 product is exact in float64, so the float64
+    sum rounded once more to float32 is the fused result (but for ties of
+    probability ~2^-29).  A float64 operand (a float32 value cast once
+    for reuse) is taken as it is."""
+    a = a.double() if torch.is_tensor(a) else a
+    b = b.double() if torch.is_tensor(b) else b
+    c = c.double() if torch.is_tensor(c) else c
+    return (a * b + c).float()
+
+
+# XLA-CPU's float32 log (Eigen's Cephes plog, Estrin form, with the fused
+# multiply-adds of its code generator), its log1p (Cephes rational below
+# |x| < sqrt(2) - 1) and the erf_inv of the CHLO lowering (Giles 2010).
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+          1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+          3.3333331174e-1)
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
+               1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406,
+               2.83297682)
+
+
+def _f32(v: float) -> float:
+    return float(np.float32(v))
+
+
+def _xla_log(x: torch.Tensor) -> torch.Tensor:
+    """XLA-CPU's float32 log of x > 0, bit for bit."""
+    x = torch.clamp(x, min=_f32(1.17549435e-38))
+    bits = x.view(torch.int32)
+    e = ((bits >> 23) - 127).float() + 1.0
+    m = ((bits & -2139095041) | 0x3F000000).view(torch.float32)   # [0.5, 1)
+    small = m < _f32(0.707106781186547524)
+    e = e - small.float()
+    m = (m - 1.0) + torch.where(small, m, 0.0)
+    x2 = m * m
+    x3 = x2 * m
+    m64, x3_64 = m.double(), x3.double()
+    p = [_f32(v) for v in _LOG_P]
+    y = _fma(_fma(m64, p[0], p[1]), m64, p[2])
+    y1 = _fma(_fma(m64, p[3], p[4]), m64, p[5])
+    y2 = _fma(_fma(m64, p[6], p[7]), m64, p[8])
+    y = _fma(_fma(y, x3_64, y1), x3_64, y2)
+    y = _fma(y, x3_64, e * _f32(-2.12194440e-4))
+    r = (m - 0.5 * x2) + y
+    return _fma(e, _f32(0.693359375), r)
+
+
+def _xla_log1p(a: torch.Tensor) -> torch.Tensor:
+    """XLA-CPU's float32 log1p, bit for bit."""
+    a64 = a.double()
+
+    def horner(coeffs):
+        p = torch.zeros_like(a)
+        for cc in coeffs:
+            p = _fma(p, a64, _f32(cc))
+        return p
+
+    a2 = a * a
+    s = a + (-0.5 * a2 + (a * a2) * (horner(_LOG1P_NUM) / horner(_LOG1P_DEN)))
+    return torch.where(torch.abs(a) < _f32(0.41421356237309504880), s,
+                       _xla_log(a + 1.0))
+
+
+def erfinv_xla(x: torch.Tensor) -> torch.Tensor:
+    """float32 erfinv as ``jax.lax.erf_inv`` runs on XLA-CPU (Giles' two
+    branches on w = -log1p(-x^2), split at w = 5).  Every step is an
+    elementwise float32/float64 add, multiply, divide, float64 sqrt or bit
+    operation, each correctly rounded in scalar and vector code alike, so
+    the result does not depend on how the work is chunked across threads
+    (``torch.erfinv`` on the CPU did)."""
+    w = -_xla_log1p(x * -x)
+    lt5 = w < 5.0
+    # torch's float32 sqrt on the CPU is not correctly rounded; the float64
+    # root rounded to float32 is
+    ww = torch.where(lt5, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
+    ww64 = ww.double()
+    p = torch.where(lt5, _f32(_ERFINV_LT5[0]), _f32(_ERFINV_GE5[0]))
+    for c_lt, c_ge in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = _fma(p, ww64, torch.where(lt5, _f32(c_lt), _f32(c_ge)))
+    return torch.where(torch.abs(x) == 1.0, x * float("inf"), p * x)
+
+
 def normal(k: Key, shape, device) -> torch.Tensor:
     """``jax.random.normal`` in float32: sqrt(2) erfinv(u), u uniform on
-    (nextafter(-1, 0), 1).  torch's erfinv and XLA's differ in the last
-    ulps, so draws agree to a few ulp, not bit for bit."""
+    (nextafter(-1, 0), 1), with XLA-CPU's erfinv (:func:`erfinv_xla`), so the
+    draws equal the JAX package's bit for bit on the CPU."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(k, shape, device, lo, 1.0)
-    return float(np.float32(np.sqrt(2.0))) * torch.erfinv(u)
+    return float(np.float32(np.sqrt(2.0))) * erfinv_xla(u)
 
 
 def gumbel(k: Key, shape, device) -> torch.Tensor:
