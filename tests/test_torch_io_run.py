@@ -199,13 +199,27 @@ def test_build_model_matches_jax(case):
     assert out.step == 0 and int((out.aero.num > 0).sum()) > 0
 
 
-def test_file_driven_flags_raise():
+def test_file_driven_flags_raise(tmp_path):
+    """Every file flag reads its file (the branches are ported: none raises
+    NotImplementedError): a missing file raises FileNotFoundError, through
+    ``build_model`` and the command line.  --emissions and --bcs are read
+    with --ics, as in the reference's runner."""
+    from wrf_partmc_tpu_torch.models.partmc.dist import make_mode
+    from wrf_partmc_tpu_torch.tools.make_inputs import write_ics
+
     cfg = config_from_reference(_small_cfg())
+    ics = str(tmp_path / "ics.nc")
+    write_ics(ics, make_mode(1e9, 1e-7, 1.6, np.ones(20)))
+    missing = str(tmp_path / "missing.nc")
     for flag in prun.FILE_FLAGS:
-        with pytest.raises(NotImplementedError, match="init_from_files"):
-            prun.build_model(cfg, input_files={flag: "x.nc"}, device="cpu")
-        with pytest.raises(NotImplementedError, match="real.py"):
-            prun.main([f"--{flag}", "x.nc", "--device", "cpu", "--outdir", "unused"])
+        files = {flag: missing}
+        if flag in ("emissions", "bcs"):
+            files["ics"] = ics
+        with pytest.raises(FileNotFoundError):
+            prun.build_model(cfg, input_files=files, device="cpu")
+        argv = [a for k, v in files.items() for a in (f"--{k}", v)]
+        with pytest.raises(FileNotFoundError):
+            prun.main(argv + ["--device", "cpu", "--outdir", str(tmp_path / "out")])
 
 
 def test_default_device_is_cuda():

@@ -14,6 +14,8 @@ launch.  Outputs are allocated over NaN junk, so a slot a kernel misses
 shows.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -225,3 +227,56 @@ def test_wrappers_refuse_bad_inputs(cuda):
         tridiag.thomas_solve(c, c, c, [c, torch.ones((4, 3))])
     with pytest.raises(ValueError):
         tridiag.thomas_solve(c, c, c, [torch.ones((3, 4), device=cuda).t()])
+
+
+def _fragmented_state(g, cells, S, P, cuda):
+    """A population with a third of its slots dead, scattered."""
+    from wrf_partmc_tpu_torch.models.partmc.aero_data import make_aero_data
+    from wrf_partmc_tpu_torch.models.partmc.aero_state import zero_state
+
+    st = zero_state(make_aero_data(device=cuda), P, cells, device=cuda)
+    alive = torch.rand((*cells, P), generator=g, device=cuda) > 0.33
+    num = torch.where(alive, torch.rand((*cells, P), generator=g, device=cuda) * 1e8, 0.0)
+    vol = torch.where(alive[..., None, :],
+                      torch.rand((*cells, S, P), generator=g, device=cuda) * 1e-21, 0.0)
+    pid = torch.where(alive, torch.arange(P, dtype=torch.int32, device=cuda), 0)
+    return dataclasses.replace(st, num=num, vol=vol, pid=pid,
+                               t_create=torch.rand((*cells, P), generator=g, device=cuda))
+
+
+@pytest.mark.parametrize("cells,P", [((10, 4, 4), 1280), ((1, 1, 1), 2048), ((3, 5, 7), 33)])
+def test_compact_through_scatter_kernel_bit_exact(cuda, cells, P):
+    """``aero_state.compact`` launches K2 once and equals the plain scatter
+    through the same pack and unpack, field for field (the real-data
+    path's [16000, 33, 1280] and the box's one cell at the few-cell
+    scale)."""
+    from wrf_partmc_tpu_torch.models.partmc import aero_state
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    st = _fragmented_state(g, cells, 20, P, cuda)
+    before = place.scatter_rows_cuda.launches
+    out = aero_state.compact(st)
+    assert place.scatter_rows_cuda.launches == before + 1
+    alive = st.alive
+    rank = torch.cumsum(alive.to(torch.int32), dim=-1) - 1
+    dst = torch.where(alive, rank, -1).reshape(-1, P).to(torch.int32).contiguous()
+    ref = aero_state.unpack_payload(st, place.scatter_rows_plain(aero_state.pack_payload(st),
+                                                                  dst, P))
+    for f in dataclasses.fields(ref):
+        assert torch.equal(getattr(out, f.name), getattr(ref, f.name)), f.name
+    n = alive.sum(-1)
+    assert torch.equal(out.alive, torch.arange(P, device=cuda) < n[..., None])
+
+
+@pytest.mark.parametrize("L1,L2", [(2048, 2048), (2048, 1024), (1024, 2048), (2047, 2049)])
+def test_gather_kernel_one_box_bit_exact(cuda, L1, L2):
+    """K3 at B = 1, the box model's shapes (one cell of 2048 slots, 33
+    channels: the coagulation pairing and the rebalance's split)."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn((1, 33, L1), generator=g, device=cuda)
+    src = torch.randint(-1, L1, (1, L2), generator=g, device=cuda, dtype=torch.int32)
+    _junk_then_empty((1, 33, L2), cuda)
+    before = place.gather_rows_cuda.launches
+    out = place.gather_rows(x, src)
+    assert place.gather_rows_cuda.launches == before + 1
+    assert torch.equal(out, place.gather_rows_plain(x, src))

@@ -33,7 +33,9 @@ def test_port_imports_no_jax():
     assert "wrf_partmc_tpu_torch.models.coupled.driver" in out["modules"]
     for m in ("models.partmc.seasalt", "models.physics.surface",
               "models.physics.cumulus", "models.physics.sfs_nba",
-              "models.physics.scm_forcing"):
+              "models.physics.scm_forcing", "models.dycore.real", "models.partmc.box",
+              "models.partmc.box_model", "utils.llxy", "utils.spec_file", "tools.make_inputs",
+              "tools.mozbc", "tools.make_emissions", "tools.urban_plume"):
         assert "wrf_partmc_tpu_torch." + m in out["modules"], m
     assert out["jax"] == []
     assert out["reference"] == []

@@ -473,14 +473,18 @@ class CoupledModel(torch.nn.Module):
     ``exch_h``, when MOSAIC runs CBM-Z the ``Mechanism`` tables, and with a
     wrfbdy (``bdy``) its slabs and the zone weights.  ``forward(state)``
     returns the next state; the step's diag (transport counters, removal
-    records) is kept in ``last_diag``."""
+    records) is kept in ``last_diag``.  ``set_scenario`` swaps the
+    ``Scenario`` between steps; ``scenario_fn(t)``, when a file-driven
+    build gives one, is the scenario for model time t, which the runner
+    sets before each step."""
 
     def __init__(self, cfg: Config, grid: Grid, aero_data: AeroData,
                  gas_data: GasData, scn: Scenario, exch_h, seed: int = 0,
-                 bdy: BdyData | None = None):
+                 bdy: BdyData | None = None, scenario_fn=None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
+        self.scenario_fn = scenario_fn
         self.base_key = rng.base_key(seed)
         self._templates = {}
         tables = [("grid", grid), ("aero_data", aero_data), ("gas_data", gas_data),
@@ -498,7 +502,8 @@ class CoupledModel(torch.nn.Module):
         self.last_diag = {}
 
     def _table(self, name: str):
-        return with_leaves(self._templates[name], name, dict(self.named_buffers()))
+        buffers = dict(self.named_buffers(remove_duplicate=False))
+        return with_leaves(self._templates[name], name, buffers)
 
     @property
     def grid(self) -> Grid:
@@ -515,6 +520,26 @@ class CoupledModel(torch.nn.Module):
     @property
     def scn(self) -> Scenario:
         return self._table("scn")
+
+    def set_scenario(self, scn: Scenario) -> None:
+        """Make ``scn`` the scenario of the steps that follow (the host's
+        swap of the BC time slab, which the reference triggers on its BC
+        time index): its tensors are copied into the scenario's buffers in
+        place, so ``scn`` must have the same leaves, shapes and dtypes.
+        Handing the same object again costs nothing."""
+        if scn is self._templates["scn"]:
+            return
+        new = tensor_leaves(scn, "scn")
+        old = {k: v for k, v in self.named_buffers(remove_duplicate=False)
+               if k.startswith("scn__")}
+        if new.keys() != old.keys() or any(
+                old[k].shape != t.shape or old[k].dtype != t.dtype for k, t in new.items()):
+            raise ValueError("set_scenario: the scenario's leaves, shapes or dtypes differ "
+                             "from the model's")
+        with torch.no_grad():
+            for k, t in new.items():
+                old[k].copy_(t)
+        self._templates["scn"] = scn
 
     @property
     def mech(self) -> Mechanism | None:

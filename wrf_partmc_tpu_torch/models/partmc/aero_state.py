@@ -144,6 +144,26 @@ def unpack_payload(state: AeroState, payload) -> AeroState:
         hyst_leg=torch.where(dead, zero_i + 1, ii(p[6 + S + 2 * K])))
 
 
+def permute_slots(state: AeroState, dst) -> AeroState:
+    """Move each particle to slot ``dst[..., p]`` of its own cell (-1
+    drops), through ``scatter_rows`` (kernel K2 on CUDA)."""
+    from ...ops.place import scatter_rows
+
+    P = state.capacity
+    rows = scatter_rows(pack_payload(state), dst.reshape(-1, P).to(torch.int32).contiguous(), P)
+    return unpack_payload(state, rows)
+
+
+def compact(state: AeroState) -> AeroState:
+    """Stable-move alive particles to the front of the slot axis (the
+    reference's ``aero_sorted`` re-sort).  Nothing on the coupled step
+    needs it: transport, emission and rebalance work on fragmented
+    populations through rank computations."""
+    alive = state.alive
+    rank = torch.cumsum(alive.to(torch.int32), dim=-1) - 1
+    return permute_slots(state, torch.where(alive, rank, -1))
+
+
 def fill_fresh(aero_data: AeroData, capacity: int, new_vol, new_num,
                new_source, new_w_class, time=0.0,
                n_src_comp: int = 3) -> AeroState:

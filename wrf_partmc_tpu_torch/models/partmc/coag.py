@@ -1,6 +1,7 @@
 """Stochastic coagulation (super-droplet all-or-nothing Monte Carlo).
 
-Port of ``coag_step`` and the Brownian kernel of
+Port of ``coag_step`` and the coagulation kernels (zero, constant, additive,
+sedimentation and the Brownian production default) of
 ``wrf_partmc_tpu/models/partmc/coag.py``: each step pairs the alive slots of
 every cell through one random permutation, applied to the packed payload by
 ``gather_rows`` (kernel K3 on CUDA), draws the number of coalescence events
@@ -21,6 +22,16 @@ from ...utils import rng
 from .aero_data import AeroData, vol_to_diam
 from .aero_state import _PID_SPLIT, AeroState, pack_payload, unpack_payload
 from .env_state import EnvState
+
+KERNEL_ZERO = "zero"
+KERNEL_CONSTANT = "constant"
+KERNEL_ADDITIVE = "additive"
+KERNEL_SEDI = "sedi"
+KERNEL_BROWN = "brown"
+
+# magnitudes used by PartMC's test kernels
+CONSTANT_KERNEL_COEF = 1.0e-15     # [m3 s-1]
+ADDITIVE_KERNEL_COEF = 1000.0      # [s-1] multiplies volume sum
 
 
 def cunningham_slip(diam, mean_free_path):
@@ -53,6 +64,36 @@ def brownian_kernel(d1, d2, m1, m2, env: EnvState):
     return 2.0 * torch.pi * Dsum * dsum / denom
 
 
+def sedi_kernel(d1, d2, m1, m2, env: EnvState):
+    """Gravitational collection kernel with unit efficiency [m3 s-1]."""
+    mfp = env.air_mean_free_path[..., None]
+
+    def v_term(d, m):
+        # the reference's max(vol, 1e-300) is max(vol, 0) in f32
+        rho_p = m / torch.clamp((torch.pi / 6.0) * d ** 3, min=0.0)
+        return rho_p * d * d * c.GRAV * cunningham_slip(d, mfp) / (18.0 * c.AIR_DYN_VISC)
+    area = (torch.pi / 4.0) * (d1 + d2) ** 2
+    return area * torch.abs(v_term(d1, m1) - v_term(d2, m2))
+
+
+def eval_kernel(kind: str, d1, d2, m1, m2, env: EnvState):
+    """The coagulation kernel ``kind`` [m3 s-1] for pairs of diameters d
+    [m] and masses m [kg]."""
+    if kind == KERNEL_ZERO:
+        return torch.zeros_like(d1)
+    if kind == KERNEL_CONSTANT:
+        return torch.full_like(d1, CONSTANT_KERNEL_COEF)
+    if kind == KERNEL_ADDITIVE:
+        v1 = (torch.pi / 6.0) * d1 ** 3
+        v2 = (torch.pi / 6.0) * d2 ** 3
+        return ADDITIVE_KERNEL_COEF * (v1 + v2)
+    if kind == KERNEL_SEDI:
+        return sedi_kernel(d1, d2, m1, m2, env)
+    if kind == KERNEL_BROWN:
+        return brownian_kernel(d1, d2, m1, m2, env)
+    raise ValueError(f"unknown kernel {kind!r}")
+
+
 def _merge_components(sml, big, g, did, S: int, K: int):
     """Source-component merge: combine the two K-lists (the big side's
     volumes scaled by the event count), accumulate duplicate sources into
@@ -81,8 +122,9 @@ def _merge_components(sml, big, g, did, S: int, K: int):
 
 
 def coag_step(state: AeroState, aero_data: AeroData, env: EnvState, dt, key,
-              return_events: bool = False):
-    """One Monte Carlo coagulation step over every cell at once.
+              kernel: str = KERNEL_BROWN, return_events: bool = False):
+    """One Monte Carlo coagulation step over every cell at once, with the
+    coagulation kernel ``kernel`` (:func:`eval_kernel`).
 
     ``return_events=True`` also returns ``{"removed_id", "other_id"}``,
     each [..., P//2] int32: for each candidate pair, the id of the particle
@@ -120,7 +162,7 @@ def coag_step(state: AeroState, aero_data: AeroData, env: EnvState, dt, key,
     num_a, d_a, m_a = side(A)
     num_b, d_b, m_b = side(B)
 
-    kk = brownian_kernel(d_a, d_b, m_a, m_b, env)
+    kk = eval_kernel(kernel, d_a, d_b, m_a, m_b, env)
     n = state.n_alive().to(torch.float32)[..., None]
     pair_scale = n * (n - 1.0) / (2.0 * torch.clamp(torch.floor(n / 2.0), min=1.0))
     V = env.cell_volume.to(torch.float32)

@@ -1,14 +1,20 @@
-"""Per-particle dry deposition velocity (resistance-in-series).
+"""Per-particle dry deposition (resistance-in-series).
 
-Port of ``settling_velocity``, ``deposition_velocity`` and
-``aerodynamic_resistance`` of ``wrf_partmc_tpu/models/partmc/deposition.py``.
+Port of ``wrf_partmc_tpu/models/partmc/deposition.py``: the settling,
+deposition velocity and aerodynamic resistance, and ``deposit_step``, the
+stochastic removal from a surface-layer population with p = v_d dt / dz.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ... import constants as c
+from ...utils import rng
+from .aero_data import AeroData, particle_mass, particle_volume
+from .aero_state import AeroState
 from .coag import cunningham_slip
 from .env_state import EnvState
 
@@ -57,3 +63,22 @@ def aerodynamic_resistance(env: EnvState, z_ref, z0=0.1, rmol=None):
         log_term = log_term - _psi_h(z_ref * rmol) + _psi_h(z0 * rmol)
     return torch.clamp(log_term, min=0.1) / (c.KARMAN
                                              * torch.clamp(env.ustar, min=0.01))
+
+
+def deposit_step(state: AeroState, aero_data: AeroData, env: EnvState, dt, dz,
+                 key, z0=0.1) -> AeroState:
+    """Stochastic removal from the surface-layer cell population: each
+    alive particle goes with probability clip(v_d dt / dz, 0, 1)."""
+    vol = particle_volume(state.vol)
+    mass = particle_mass(state.vol, aero_data)
+    rho_p = mass / torch.clamp(vol, min=0.0)       # max(vol, 1e-300) is max(vol, 0) in f32
+    diam = torch.clamp(state.wet_diameter(), min=1e-9)
+    r_a = aerodynamic_resistance(env, env.height, z0)
+    v_d = deposition_velocity(diam, rho_p, env, r_a)
+    dz = torch.as_tensor(dz, dtype=torch.float32, device=diam.device)
+    p_rem = torch.clamp(v_d * dt / dz[..., None], 0.0, 1.0)
+    u = rng.uniform(key, state.num.shape, state.num.device)
+    keep = (u >= p_rem) & state.alive
+    return dataclasses.replace(
+        state, num=torch.where(keep, state.num, 0.0),
+        vol=torch.where(keep[..., None, :], state.vol, 0.0))

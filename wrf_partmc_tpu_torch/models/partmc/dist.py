@@ -45,6 +45,31 @@ def make_mode(num_conc, gmd, gsd, vol_frac, source=0, w_class=0,
                     w_class=torch.tensor([w_class], dtype=torch.int32, device=device))
 
 
+def from_sampled(diam_edges, num_conc, vol_frac, source=0, w_class=0,
+                 device="cpu") -> AeroDist:
+    """A binned (histogram) size distribution (the reference's
+    AERO_MODE_TYPE_SAMPLED): each bin becomes one narrow log-normal mode
+    with the bin's mean and variance in ln D (sigma_ln = bin width /
+    sqrt(12)), so the stacked-mode sampling applies unchanged.
+
+    diam_edges: [B+1] bin edges [m]; num_conc: [B] number conc per bin
+    [# m-3]; vol_frac: [S] or [B, S]."""
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    e = f32(diam_edges)
+    nc = f32(num_conc)
+    B = nc.shape[-1]
+    gmd = torch.sqrt(e[:-1] * e[1:])
+    sig = torch.log(e[1:] / e[:-1]) / torch.sqrt(torch.tensor(12.0, device=device))
+    vf = f32(vol_frac)
+    if vf.dim() == 1:
+        vf = vf.expand(B, vf.shape[0])
+    vf = vf / torch.clamp(torch.sum(vf, dim=-1, keepdim=True), min=1e-30)
+    full = lambda v: torch.full((B,), v, dtype=torch.int32, device=device)
+    return AeroDist(num_conc=nc, geom_mean_diam=gmd,
+                    log_geom_std=torch.clamp(sig, min=1e-3), vol_frac=vf,
+                    source=full(source), w_class=full(w_class))
+
+
 def concat_dists(dists) -> AeroDist:
     cat = lambda f: torch.cat([getattr(d, f) for d in dists], dim=-1)
     return AeroDist(num_conc=cat("num_conc"), geom_mean_diam=cat("geom_mean_diam"),
@@ -55,6 +80,16 @@ def concat_dists(dists) -> AeroDist:
 
 def dist_number_conc(dist: AeroDist) -> torch.Tensor:
     return torch.sum(dist.num_conc, dim=-1)
+
+
+def dist_num_density(dist: AeroDist, diam) -> torch.Tensor:
+    """dN/dlnD [# m-3] at diameters ``diam[...]``: the analytic log-normal
+    sum."""
+    ln_d = torch.log(diam)[..., None]
+    mu = torch.log(dist.geom_mean_diam)
+    sig = dist.log_geom_std
+    pdf = torch.exp(-0.5 * ((ln_d - mu) / sig) ** 2) / (sig * np.float32(np.sqrt(2 * np.pi)))
+    return torch.sum(dist.num_conc * pdf, dim=-1)
 
 
 def sample_particles(key, dist: AeroDist, aero_data: AeroData, n_sample: int,

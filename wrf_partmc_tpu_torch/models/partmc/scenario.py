@@ -43,6 +43,14 @@ def constant_scenario(aero_data: AeroData, n_gas: int, emit_dist: AeroDist,
                     back_gas=f32(n_gas))
 
 
+def at_clamped(a, i):
+    """``a[i]`` with ``i`` clamped to ``a``'s first axis, as a JAX gather
+    indexes: the mode-only ``source``/``w_class`` of a dist read from a file
+    are indexed by the time slab like the per-time arrays, so past their
+    mode count they give the last mode's value."""
+    return a[torch.clamp(torch.as_tensor(i), max=a.shape[0] - 1)]
+
+
 def _time_index(times, t):
     tt = torch.tensor([t], dtype=torch.float32, device=times.device)
     i = torch.searchsorted(times, tt, right=True)[0] - 1
@@ -62,7 +70,7 @@ def dist_at_time(scn: Scenario, t) -> AeroDist:
     """Emission dist at time t: mode intensities interpolated in time, shape
     parameters from the lower slab."""
     i, j, w = _time_weight(scn.emit_times, t)
-    d_i = tree_map(lambda a: a[i], scn.emit_dist)
+    d_i = tree_map(lambda a: at_clamped(a, i), scn.emit_dist)
     nc_j = scn.emit_dist.num_conc[j]
     return dataclasses.replace(d_i, num_conc=(1.0 - w) * d_i.num_conc + w * nc_j)
 

@@ -7,12 +7,17 @@ restart (``restart``), with section timers and the memory tracker.  Output
 files are written by the native quilt pool while the card steps on.
 
     python -m wrf_partmc_tpu_torch.run --namelist namelist.input --case uniform \\
-        --outdir out/ [--steps N] [--restart R] [--seed S] [--device cuda|cpu]
+        --outdir out/ [--steps N] [--restart R] [--seed S] [--device cuda|cpu] \\
+        [--wrfinput F] [--ics F [--emissions F] [--bcs F]] [--spec F]
 
 The model is built on ``cuda`` unless ``--device cpu`` is given; without
-a card the default raises.  The file-driven initializations of the
-reference (``--ics``, ``--emissions``, ``--bcs``, ``--spec``,
-``--wrfinput``) are not ported and raise ``NotImplementedError``.
+a card the default raises.  The file-driven initializations start a real
+case: ``--wrfinput`` (a wrfinput from WPS, through the real_em on-ramp)
+replaces the case's dycore state; ``--ics`` samples per-cell aerosol ICs,
+with ``--emissions`` (SMOKE-derived series) and ``--bcs`` (MOZART-derived
+lateral backgrounds, swapped at their times) beside it; ``--spec`` reads
+a PartMC ``.spec`` scenario (ICs, gases, emissions).  The input files are
+written by ``wrf_partmc_tpu_torch/tools`` (or the JAX package's tools).
 """
 
 from __future__ import annotations
@@ -30,8 +35,10 @@ from .entry import require_device
 from .grid import make_grid
 from .models.coupled.driver import (TRANSPORT_COUNTERS, CoupledModel, init_coupled,
                                     make_env)
-from .models.coupled.init import populate_from_dist, populate_from_number_field
+from .models.coupled.init import (init_from_files, init_from_spec, populate_from_dist,
+                                  populate_from_number_field)
 from .models.dycore.ideal import init_rotational, init_scm, init_uniform, init_warm_bubble
+from .models.dycore.real import init_real
 from .models.partmc.aero_data import make_aero_data
 from .models.partmc.bin_grid import make_bin_grid
 from .models.partmc.diagnostics import process
@@ -59,38 +66,58 @@ FILE_FLAGS = ("ics", "emissions", "bcs", "spec", "wrfinput")
 
 def build_model(cfg: Config, case: str = "uniform", seed: int = 0,
                 input_files: dict | None = None, device="cuda"):
-    """The coupled model and its initial state for an ideal ``case`` on
-    ``device``: -> ``(CoupledModel, CoupledState)``.  uniform and
-    rotational start their particles from the case's number field (one
-    monodisperse SO4 population matching the NUM_CONC tracer); warm_bubble
-    and scm sample a 1e9 m-3 log-normal mode into every cell.  Emission
-    draws from an empty dist, so it dilutes only.  ``input_files``, the
-    reference's file-driven initializations, are not ported and raise."""
-    given = sorted(k for k, v in (input_files or {}).items() if v)
-    if given:
-        raise NotImplementedError(
-            f"file-driven initialization ({', '.join('--' + k for k in given)}) is not "
-            "ported: it needs models/coupled/init.py::init_from_files (ics, emissions, "
-            "bcs), init.py::init_from_spec (spec) and models/dycore/real.py (wrfinput)")
+    """The coupled model and its initial state on ``device``: ->
+    ``(CoupledModel, CoupledState)``; ``model.scenario_fn`` is the file
+    branch's ``scenario_fn(t)``, or None.  ``input_files`` ({"wrfinput",
+    "spec", "ics", "emissions", "bcs": path}) selects the branch, as the
+    reference's runner does:
+
+    - "wrfinput": the real_em on-ramp replaces the case's dycore state and
+      its IVGTYP/ISLTYP go to the land surface;
+    - "spec": the ``.spec`` scenario sets the particles, the gases and the
+      scenario (``init_from_spec``);
+    - "ics" (with "emissions" and "bcs" optional): the ICs are sampled and
+      the scenario follows the files (``init_from_files``);
+    - else the case's own population: uniform and rotational start from the
+      case's number field (a monodisperse SO4 population matching the
+      NUM_CONC tracer), warm_bubble, scm and a wrfinput without ICs sample
+      a 1e9 m-3 log-normal mode into every cell, and emission draws from an
+      empty dist, so it dilutes only."""
     require_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False   # full-f32 einsums/matmuls
     torch.backends.cudnn.allow_tf32 = False
+    files = {k: v for k, v in (input_files or {}).items() if v}
     ad = make_aero_data(device=device)
     gd = make_gas_data(device=device)
     vf = np.zeros(ad.n_spec)
     vf[ad.spec_by_name("SO4")] = 1.0
-    grid = make_grid(cfg, device=device)
-    dyn = CASES[case](cfg, grid)
-    cs = init_coupled(cfg, grid, ad, gd, dyn)
-    scn = constant_scenario(ad, gd.n_spec, make_mode(0.0, 1e-7, 1.6, vf, device=device))
-    if case in ("uniform", "rotational"):
-        aero = populate_from_number_field(ad, cfg, grid, dyn.num_conc[0], rng.base_key(seed))
+    if "wrfinput" in files:
+        grid, dyn, sfc = init_real(cfg, files["wrfinput"], device=device)
     else:
-        ic = make_mode(1e9, 1e-7, 1.6, vf, device=device)
-        aero = populate_from_dist(ad, cfg, grid, ic, rng.base_key(seed))
-    cs = dataclasses.replace(cs, aero=aero)
+        grid = make_grid(cfg, device=device)
+        dyn = CASES[case](cfg, grid)
+        sfc = {}
+    cs = init_coupled(cfg, grid, ad, gd, dyn, ivgtyp=sfc.get("ivgtyp"),
+                      isltyp=sfc.get("isltyp"))
+    key = rng.base_key(seed)
+    scenario_fn = None
+    gas = cs.gas
+    if "spec" in files:
+        aero, gas, scenario_fn = init_from_spec(ad, gd, cfg, grid, key, files["spec"])
+    elif "ics" in files:
+        aero, scenario_fn = init_from_files(ad, gd.n_spec, cfg, grid, key, files["ics"],
+                                            files.get("emissions"), files.get("bcs"))
+    elif case in ("uniform", "rotational") and "wrfinput" not in files:
+        aero = populate_from_number_field(ad, cfg, grid, dyn.num_conc[0], key)
+    else:
+        aero = populate_from_dist(ad, cfg, grid, make_mode(1e9, 1e-7, 1.6, vf, device=device),
+                                  key)
+    scn = (scenario_fn(0.0) if scenario_fn is not None else
+           constant_scenario(ad, gd.n_spec, make_mode(0.0, 1e-7, 1.6, vf, device=device)))
+    cs = dataclasses.replace(cs, aero=aero, gas=gas)
     exch = k_profile_exch_h(grid, 0.4, 800.0)
-    model = CoupledModel(cfg, grid, ad, gd, scn, exch, seed=cfg.partmc.random_seed or seed)
+    model = CoupledModel(cfg, grid, ad, gd, scn, exch, seed=cfg.partmc.random_seed or seed,
+                         scenario_fn=scenario_fn)
     return model, cs
 
 
@@ -145,6 +172,8 @@ def run(cfg: Config, case: str, outdir: str, seed: int = 0,
     m_chem = max(1, int(round(pc.partmc_chem_dt / cfg.dynamics.dt)))
 
     while not clock.done():
+        if model.scenario_fn is not None:
+            model.set_scenario(model.scenario_fn(clock.t))
         diag = None
         if clock.ringing("auxhist2"):
             with timers.section("partmc_process"):
@@ -216,8 +245,11 @@ def main(argv=None, configure=None):
     ap.add_argument("--restart", help="restart (.npz, or .nc NetCDF) to resume from")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="torch device (default cuda)")
-    for flag in FILE_FLAGS:
-        ap.add_argument(f"--{flag}", help="not ported (raises NotImplementedError)")
+    ap.add_argument("--ics", help="IC NetCDF (tools/make_inputs.py contract)")
+    ap.add_argument("--emissions", help="emission time-series NetCDF (with --ics)")
+    ap.add_argument("--bcs", help="lateral-BC background NetCDF (with --ics)")
+    ap.add_argument("--spec", help="PartMC scenario .spec file")
+    ap.add_argument("--wrfinput", help="wrfinput-like NetCDF (real_em on-ramp)")
     args = ap.parse_args(argv)
 
     cfg = (namelist_to_config(load_namelist(args.namelist)) if args.namelist
