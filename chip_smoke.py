@@ -97,13 +97,33 @@ Phases, each printed on its own line and each fatal on failure:
     n_ideal = 1024) through ``box_model.run_box`` for the published 24 h
     at dt 300 s on ``cuda``: hourly O3, NO, NH3, number and chi, the
     ms/step, K3's launches and shapes, and the trajectory bands of
-    ``tests/test_urban_plume.py``.
+    ``tests/test_urban_plume.py``;
+25. card against CPU, the linear core: one em_uniform coupled step at
+    12x12x4 with ``dyn_opt="linear"`` (no mu/ph) on ``cuda`` and on ``cpu``;
+26. the linear-core path: 40x40x10, 1000 particles per cell (capacity
+    1280), ``dyn_opt="linear"``: a warm-up and six timed steps, the ms/step,
+    peak memory and each kernel's launches a step (K1 7 + 1: the linear
+    acoustic's 1 + 2 + 4 substep solves and vertical diffusion);
+27. card against CPU, the decomposed step: a world of one rank over NCCL
+    on ``cuda:0`` against a world of one over gloo on ``cpu`` (the 1x1
+    mesh: keys folded with the block index, the all-gathers), one step
+    of ``entry.build(mesh=...)`` at 12x12x4 each, compared as phase 4;
+    with more cards visible (up to 4), the same over ``factor_2d(n)``
+    ranks (``parallel.launch``), each rank's block compared;
+28. the decomposed main path: 40x40x10 at 1000 per cell on the
+    ``factor_2d(n)`` mesh of n ranks, n the visible cards up to 4 (one
+    rank in this process, more through ``parallel.launch``): a warm-up and
+    six timed steps, the ms/step against phase 5's, peak memory, the
+    collectives a step by kind with their bytes, each kernel's launches a
+    step, K2 and K3 held and timed again at the rank-local rebucket's
+    block shapes, then ``entry.dryrun_multichip(n)`` on the same world.
+    The process groups start on a file rendezvous under ``build/``.
 
 Paths 5, 11, 17, 18, 21 and 22 also print their kernel launches by caller
 (17, 18, 21 and 22 with K3 inside the particle rebalance and its
 ``split_largest``).
 
-After each of the paths 5, 7, 9, 11, 13, 14, 17, 18, 21, 22 and 24, every kernel is held
+After each of the paths 5, 7, 9, 11, 13, 14, 17, 18, 21, 22, 24, 26 and 28, every kernel is held
 against its plain version at each argument shape that path launched it with and no
 earlier check held, with the same times.  K1 (``thomas_solve``: the
 acoustic, MYJ and Noah solves, and vertical diffusion's six fields in one
@@ -117,6 +137,12 @@ for those indices.
 The line before the last is the kernel summary as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, the script exits non-zero and prints no result.
+
+    python3 chip_smoke.py --decomposed
+
+runs only phases 1, 2, 5, 27 and 28, with their kernel holds: the
+decomposition on every visible card (up to 4) against the undecomposed
+main path, for a machine of several cards.
 """
 
 from __future__ import annotations
@@ -608,6 +634,9 @@ def compare_card_cpu(tag: str, out_gpu, out_cpu, floor: float = 1e-4,
     worst = {}
     for name in DYN_FIELDS:
         a, b = getattr(out_gpu.dyn, name), getattr(out_cpu.dyn, name)
+        if b is None:                      # mu and ph on the linear core
+            require(a is None, f"{tag}: dyn.{name} only on the card")
+            continue
         atol = max(floors.get(name, 0.0), floor * float(b.abs().max()))
         worst[name] = float((a - b).abs().max())
         require(torch.allclose(a, b, rtol=1e-4, atol=atol),
@@ -691,6 +720,7 @@ def phase_main_path(kernels: dict, n_timed: int = 6):
     cells = 40 * 40 * 10
     ms = 1e3 * dt / n_timed
     NORMAL_DRAWS["main path"] = (draws, n_timed + 1, ms)
+    PATH_MS["main path"] = ms
     alive = int(state.aero.n_alive().sum())
     print(f"[main] warm-up step {1e3 * warm:.3f} ms; {n_timed} timed steps "
           f"{1e3 * dt:.3f} ms = {ms:.3f} ms/step, {cells * n_timed / dt:.1f} "
@@ -1072,6 +1102,7 @@ def attribute_launches(by_caller: dict, captured: dict, rebalance: bool = False)
 
 # per path: ({draw shape: calls}, steps, ms/step) of rng.normal in its run
 NORMAL_DRAWS = {}
+PATH_MS = {}                 # ms/step of the paths later phases compare with
 
 
 def record_normals(draws: dict):
@@ -2347,6 +2378,287 @@ def require_plume_bands(res) -> None:
     require(chi[h >= 18.0].mean() > chi.min(), "plume: no aging recovery of chi")
 
 
+def count_callers(by_caller: dict, sites):
+    """Count, per caller label, the launches of the kernel named in each
+    (module, attribute, label, kernel) site made inside those calls.
+    Returns a function that restores the modules."""
+    fns = _kernel_fns()
+    kernel_of = {label: kernel for _, _, label, kernel in sites}
+    by_caller.update({label: 0 for label in kernel_of})
+
+    def hook(label, fn, args, kwargs):
+        before = fns[kernel_of[label]].launches
+        out = fn(*args, **kwargs)
+        by_caller[label] += fns[kernel_of[label]].launches - before
+        return out
+    return patch_sites([site[:3] for site in sites], hook)
+
+
+def _linear_sites():
+    from wrf_partmc_tpu_torch.models.dycore import solve
+    from wrf_partmc_tpu_torch.ops import vdiff
+
+    return [(solve, "tridiag_solve", "K1 in the linear acoustic", "thomas_solve"),
+            (vdiff, "solve_fields", "K1 in vertical diffusion", "thomas_solve")]
+
+
+def _rebucket_sites(label: str):
+    from wrf_partmc_tpu_torch.models.coupled import transport
+    from wrf_partmc_tpu_torch.models.partmc import coag
+
+    return [(transport, "scatter_rows", f"K2 in the {label} rebucket", "scatter_rows"),
+            (transport, "gather_rows", f"K3 in the {label} rebucket", "gather_rows"),
+            (coag, "gather_rows", "K3 in coagulation", "gather_rows")]
+
+
+def phase_card_vs_cpu_linear():
+    from wrf_partmc_tpu_torch.entry import build
+
+    model, state = build(12, 12, 4, n_part=16, cap=48, dyn_opt="linear", device="cpu")
+    require(state.dyn.mu is None and state.dyn.ph is None, "linear: the state has mu/ph")
+    out_cpu = model(state)
+    out_gpu = model.to("cuda")(state.to("cuda")).to("cpu")
+    print("[linear-card-vs-cpu] 12x12x4, 16/cell, dyn_opt linear: "
+          + compare_card_cpu("linear card vs CPU", out_gpu, out_cpu))
+
+
+def phase_linear_path(kernels: dict, n_timed: int = 6):
+    """The em_uniform main path on the linear core."""
+    import torch
+
+    from wrf_partmc_tpu_torch.entry import build
+
+    t0 = time.perf_counter()
+    model, state = build(40, 40, 10, n_part=1000, cap=1280, dyn_opt="linear", device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    by_caller = {}
+    restore = count_callers(by_caller, _linear_sites() + _rebucket_sites("single-device"))
+    state, warm, dt, launches, shapes = drive(model, state, n_timed)
+    restore()
+    steps = n_timed + 1
+    ms = 1e3 * dt / n_timed
+    PATH_MS["linear path"] = ms
+    print(f"[linear] 40x40x10, 1000/cell, cap 1280, dyn_opt linear, n_sound "
+          f"{model.cfg.dynamics.n_sound}: build {build_s:.3f} s; warm-up {1e3 * warm:.3f} ms; "
+          f"{n_timed} timed steps {1e3 * dt:.3f} ms = {ms:.3f} ms/step (phase 5's ARW "
+          f"{PATH_MS.get('main path', float('nan')):.3f}); alive "
+          f"{int(state.aero.n_alive().sum())}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches a step "
+          + json.dumps({k: v / steps for k, v in launches.items()}))
+    print(f"[linear] kernel launches by caller in {steps} steps: {json.dumps(by_caller)}")
+    require(state.dyn.mu is None, "linear path: mu appeared")
+    require(bool(torch.isfinite(state.dyn.w).all()), "linear path: w not finite")
+    require(bool(torch.isfinite(state.aero.num).all()), "linear path: num not finite")
+    ns = model.cfg.dynamics.n_sound
+    per = 1 + max(1, ns // 2) + ns
+    require(by_caller["K1 in the linear acoustic"] == per * steps,
+            f"linear path: K1 in the acoustic {by_caller['K1 in the linear acoustic']}, "
+            f"want {per} a step")
+    require_launched(kernels, "launches_linear", launches, "linear path", steps)
+    kernels["thomas_solve"]["launches_linear_acoustic"] = by_caller["K1 in the linear acoustic"]
+    return shapes
+
+
+RDV_DIR = os.path.join(ROOT, "build", "rendezvous")
+
+
+def start_world(device: str, n: int = 1, rank: int = 0, path: str | None = None):
+    """A process group of ``n`` ranks (NCCL on ``cuda``, gloo on ``cpu``) on
+    a file rendezvous under ``build/``; returns the path for the others."""
+    from wrf_partmc_tpu_torch.parallel import distributed as pdist
+
+    os.makedirs(RDV_DIR, exist_ok=True)
+    if path is None:
+        path = os.path.join(RDV_DIR, f"{device}-{os.getpid()}-{time.monotonic_ns()}")
+    pdist.init(f"file://{path}", n, rank, device, timeout_s=300)
+    return path
+
+
+def stop_world(path: str | None):
+    from wrf_partmc_tpu_torch.parallel import distributed as pdist
+
+    pdist.shutdown()
+    if path and os.path.exists(path):
+        os.remove(path)
+
+
+def rank_step(path: str, nx: int = 12, ny: int = 12, nz: int = 4):
+    """One rank of a started world: one decomposed step of
+    ``entry.build(mesh=...)`` at nx x ny x nz (16 per cell), its state and
+    collective counts saved to ``path.<rank>`` on the CPU."""
+    import torch
+
+    from wrf_partmc_tpu_torch.entry import build
+    from wrf_partmc_tpu_torch.parallel import distributed as pdist, halo
+
+    mesh = pdist.global_mesh()
+    model, state = build(nx, ny, nz, n_part=16, cap=48, device=mesh.device, mesh=mesh)
+    halo.reset_counts()
+    out = model(state).to("cpu")
+    torch.save({"state": out, "counts": halo.read_counts()}, f"{path}.{mesh.rank}")
+
+
+def spawn_ranks(n: int, device: str, call: str, timeout_s: float = 600.0) -> list:
+    """Run ``chip_smoke.<call>`` on each of ``n`` ranks of a new ``device``
+    world started by ``parallel.launch.spawn``; returns each rank's
+    output, failing the phase if a rank fails."""
+    from wrf_partmc_tpu_torch.parallel.launch import spawn
+
+    code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke as c; "
+            "from wrf_partmc_tpu_torch.parallel import distributed as d; "
+            f"d.init_from_env({device!r}); c.{call}; d.shutdown()")
+    results = spawn(n, [sys.executable, "-c", code], timeout_s=timeout_s, cwd=ROOT)
+    bad = [(r, c, out[-2000:]) for r, (c, out) in enumerate(results) if c != 0]
+    require(not bad, f"{n} {device} ranks failed: {bad}")
+    return [out for _, out in results]
+
+
+def phase_card_vs_cpu_decomposed():
+    """A world of one over NCCL on the card, then one over gloo on the
+    CPU: one decomposed step at 12x12x4 each.  With more cards visible
+    (up to 4), the same over ``factor_2d(n)`` ranks, block by block."""
+    import torch
+
+    from wrf_partmc_tpu_torch.parallel.mesh import factor_2d
+
+    os.makedirs(RDV_DIR, exist_ok=True)
+    ns = sorted({1, min(4, torch.cuda.device_count())})
+    for n in ns:
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            path = os.path.join(RDV_DIR, f"step-{dev}-{n}")
+            if n == 1:
+                world = start_world(dev)
+                try:
+                    rank_step(path)
+                finally:
+                    stop_world(world)
+            else:
+                spawn_ranks(n, dev, f"rank_step({path!r})")
+            outs[dev] = [torch.load(f"{path}.{r}", weights_only=False) for r in range(n)]
+            for r in range(n):
+                os.remove(f"{path}.{r}")
+        py, px = factor_2d(n)
+        for r in range(n):
+            a, b = outs["cuda"][r], outs["cpu"][r]
+            require(a["counts"] == b["counts"] and a["counts"]["all_gather"]["calls"] == 1,
+                    f"decomposed card vs CPU, rank {r}: collectives {a['counts']} vs "
+                    f"{b['counts']}")
+            print(f"[decomposed-card-vs-cpu] 12x12x4, 16/cell, {n} rank(s), mesh {py}x{px}, "
+                  f"rank {r} (NCCL on cuda vs gloo on cpu): "
+                  + compare_card_cpu(f"decomposed card vs CPU, rank {r} of {n}",
+                                     a["state"], b["state"])
+                  + f"; collectives {json.dumps(a['counts'])}")
+
+
+def decomposed_run(n_timed: int = 6, report: bool = False) -> dict:
+    """This rank's share of phase 28 in a world of n ranks: the decomposed
+    em_uniform path at 40x40x10, 1000 per cell, a warm-up and ``n_timed``
+    timed steps, then ``entry.dryrun_multichip(n)``.  Returns its report
+    (shapes as lists); with ``report``, rank 0 also prints it as JSON."""
+    import torch
+    import torch.distributed as dist
+
+    from wrf_partmc_tpu_torch.entry import build, dryrun_multichip
+    from wrf_partmc_tpu_torch.parallel import distributed as pdist, halo
+
+    n = dist.get_world_size()
+    mesh = pdist.global_mesh()
+    torch.cuda.set_device(mesh.device)
+    t0 = time.perf_counter()
+    model, state = build(40, 40, 10, n_part=1000, cap=1280, device=mesh.device, mesh=mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    by_caller = {}
+    restore = count_callers(by_caller, _rebucket_sites("rank-local"))
+    state = model(state)
+    torch.cuda.synchronize()
+    halo.reset_counts()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        state = model(state)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    restore()
+    counts = halo.read_counts()
+    launches, shapes = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    alive = int(halo.all_reduce_sum(state.aero.n_alive().sum().to(torch.float32), mesh))
+    finite = bool(torch.isfinite(state.aero.num).all() and torch.isfinite(state.dyn.theta_p).all())
+    diag = {k: float(v) for k, v in model.last_diag.items()}
+    dry = dryrun_multichip(n, device="cuda")
+    rep = dict(n=n, mesh=list(mesh.shape), rank=mesh.rank, build_s=build_s,
+                ms=1e3 * dt / n_timed, steps=n_timed + 1, peak_gib=peak, alive=alive,
+                finite=finite, diag=diag, by_caller=by_caller, launches=launches,
+                shapes={k: [list(map(_listify, sh)) for sh in v] for k, v in shapes.items()},
+                collectives={k: {f: v / n_timed for f, v in rec.items() if f != "max_bytes"}
+                             | {"max_bytes": rec["max_bytes"]} for k, rec in counts.items()},
+                block=list(state.aero.num.shape), dryrun=dry["collectives"])
+    if report and mesh.rank == 0:
+        print("REPORT " + json.dumps(rep), flush=True)
+    return rep
+
+
+def _listify(x):
+    return [_listify(v) for v in x] if isinstance(x, (tuple, list)) else x
+
+
+def _tuplify(x):
+    return tuple(_tuplify(v) for v in x) if isinstance(x, list) else x
+
+
+def phase_decomposed_path(kernels: dict):
+    import torch
+
+    n = min(4, torch.cuda.device_count())
+    if n == 1:
+        path = start_world("cuda")
+        try:
+            rep = decomposed_run()
+        finally:
+            stop_world(path)
+    else:
+        out = spawn_ranks(n, "cuda", "decomposed_run(report=True)")[0]
+        rep = json.loads(next(line[7:] for line in out.splitlines()
+                              if line.startswith("REPORT ")))
+    shapes = {k: {_tuplify(sh) for sh in v} for k, v in rep["shapes"].items()}
+    steps, main_ms = rep["steps"], PATH_MS.get("main path", float("nan"))
+    print(f"[decomposed] n {rep['n']} (mesh {rep['mesh'][0]}x{rep['mesh'][1]}; rank 0's block "
+          f"{rep['block']}): 40x40x10, 1000/cell, cap 1280: build {rep['build_s']:.3f} s; "
+          f"{rep['ms']:.3f} ms/step against phase 5's undecomposed {main_ms:.3f} "
+          f"({rep['ms'] / main_ms:.4f}x); max_memory_allocated {rep['peak_gib']:.3f} GiB; "
+          f"alive {rep['alive']}; transport diag {json.dumps(rep['diag'])}")
+    print(f"[decomposed] collectives a step (calls, bytes): {json.dumps(rep['collectives'])}")
+    print(f"[decomposed] launches a step "
+          + json.dumps({k: v / steps for k, v in rep["launches"].items()})
+          + f"; by caller in {steps} steps: {json.dumps(rep['by_caller'])}")
+    print(f"[decomposed] dryrun_multichip({rep['n']}) OK, collectives "
+          + json.dumps(rep["dryrun"]))
+    # the rank-local rebucket's block shapes, held and timed here even
+    # where an earlier path held them (on one card the block is the domain)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for name in ("scatter_rows", "gather_rows"):
+        for sh in sorted(shapes[name], key=repr):
+            hold(kernels, gen, name, sh)
+    torch.cuda.empty_cache()
+    require(rep["finite"], "decomposed path: not finite")
+    require(rep["alive"] > 0, "decomposed path: no particle alive")
+    require(rep["collectives"]["all_gather"]["calls"] >= 1,
+            "decomposed path: no all-gather a step")
+    for name, rec in kernels.items():
+        rec["launches_decomposed"] = rep["launches"][name]
+        require(rec["launches_decomposed"] > 0, f"{name} was not launched on the decomposed path")
+    kernels["scatter_rows"]["launches_rank_local_rebucket"] = \
+        rep["by_caller"]["K2 in the rank-local rebucket"]
+    kernels["gather_rows"]["launches_rank_local_rebucket"] = \
+        rep["by_caller"]["K3 in the rank-local rebucket"]
+    return shapes
+
+
 def _free():
     import gc
 
@@ -2356,7 +2668,83 @@ def _free():
     torch.cuda.empty_cache()
 
 
-def main() -> int:
+def run_decomposed(kernels: dict):
+    """Phases 5, 27 and 28 with their kernel holds (``--decomposed``)."""
+    shapes, _ = phase_main_path(kernels)
+    _free()
+    phase_path_shapes("main path", kernels, shapes)
+    phase_card_vs_cpu_decomposed()
+    shapes = phase_decomposed_path(kernels)
+    _free()
+    phase_path_shapes("decomposed path", kernels, shapes)
+
+
+def run_all(kernels: dict):
+    """Phases 3-28."""
+    phase_kernels(kernels)
+    phase_card_vs_cpu()
+    shapes, captured = phase_main_path(kernels)
+    _free()
+    phase_path_shapes("main path", kernels, shapes)
+    phase_path_indices("main path", captured)
+    del captured
+    phase_card_vs_cpu_chem()
+    model, state, shapes = phase_chem_main_path(kernels)
+    phase_chem_split(model, state)
+    del model, state
+    _free()
+    phase_path_shapes("chem-on main path", kernels, shapes)
+    shapes = phase_40class(kernels)
+    _free()
+    phase_path_shapes("40-class path", kernels, shapes)
+    phase_card_vs_cpu_cares()
+    shapes, captured = phase_cares_path(kernels)
+    _free()
+    phase_path_shapes("CARES path", kernels, shapes)
+    phase_path_indices("CARES path", captured)
+    del captured
+    _free()
+    phase_diag_card_vs_cpu()
+    shapes = phase_cases()
+    _free()
+    phase_path_shapes("cases", kernels, shapes)
+    cs_full, shapes, argv = phase_runner(kernels)
+    _free()
+    phase_path_shapes("runner path", kernels, shapes)
+    phase_resume(cs_full, argv)
+    del cs_full
+    _free()
+    phase_card_vs_cpu_options()
+    for name in OPTION_SETS:
+        shapes = phase_options_path(kernels, name)
+        _free()
+        phase_path_shapes(f"{name} options path", kernels, shapes)
+    phase_normal_cost()
+    phase_card_vs_cpu_files()
+    cs_real, shapes = phase_real_path(kernels)
+    _free()
+    phase_path_shapes("real-data path", kernels, shapes)
+    shapes = phase_spec_path(kernels)
+    _free()
+    phase_path_shapes("spec path", kernels, shapes)
+    phase_compact(kernels, cs_real)
+    del cs_real
+    _free()
+    shapes = phase_urban_plume(kernels)
+    phase_path_shapes("urban plume", kernels, shapes)
+    shutil.rmtree(REAL_DIR, ignore_errors=True)
+    phase_card_vs_cpu_linear()
+    shapes = phase_linear_path(kernels)
+    _free()
+    phase_path_shapes("linear path", kernels, shapes)
+    phase_card_vs_cpu_decomposed()
+    shapes = phase_decomposed_path(kernels)
+    _free()
+    phase_path_shapes("decomposed path", kernels, shapes)
+
+
+def main(argv=None) -> int:
+    decomposed_only = (sys.argv[1:] if argv is None else argv) == ["--decomposed"]
     sys.path.insert(0, ROOT)
     try:
         import torch
@@ -2367,67 +2755,21 @@ def main() -> int:
         return 1
     kernels = {
         "thomas_solve": dict(route="cuda", source="wrf_partmc_tpu_torch/csrc/tridiag.cu",
-                             replaces="wrf_partmc_tpu/ops/pallas_tridiag.py:33"),
+                             replaces="wrf_partmc_tpu/ops/pallas_tridiag.py:33",
+                             callers=["ARW acoustic", "vertical diffusion", "MYJ", "Noah",
+                                      "linear acoustic"]),
         "scatter_rows": dict(route="cuda", source="wrf_partmc_tpu_torch/csrc/place.cu",
-                             replaces="wrf_partmc_tpu/ops/place.py:107"),
+                             replaces="wrf_partmc_tpu/ops/place.py:107",
+                             callers=["rebucket", "compact", "rank-local rebucket"]),
         "gather_rows": dict(route="cuda", source="wrf_partmc_tpu_torch/csrc/place.cu",
-                            replaces="wrf_partmc_tpu/ops/place.py:125"),
+                            replaces="wrf_partmc_tpu/ops/place.py:125",
+                            callers=["rebucket", "coagulation", "split_largest",
+                                     "rank-local rebucket"]),
     }
     try:
         phase_card()
         phase_build()
-        phase_kernels(kernels)
-        phase_card_vs_cpu()
-        shapes, captured = phase_main_path(kernels)
-        _free()
-        phase_path_shapes("main path", kernels, shapes)
-        phase_path_indices("main path", captured)
-        del captured
-        phase_card_vs_cpu_chem()
-        model, state, shapes = phase_chem_main_path(kernels)
-        phase_chem_split(model, state)
-        del model, state
-        _free()
-        phase_path_shapes("chem-on main path", kernels, shapes)
-        shapes = phase_40class(kernels)
-        _free()
-        phase_path_shapes("40-class path", kernels, shapes)
-        phase_card_vs_cpu_cares()
-        shapes, captured = phase_cares_path(kernels)
-        _free()
-        phase_path_shapes("CARES path", kernels, shapes)
-        phase_path_indices("CARES path", captured)
-        del captured
-        _free()
-        phase_diag_card_vs_cpu()
-        shapes = phase_cases()
-        _free()
-        phase_path_shapes("cases", kernels, shapes)
-        cs_full, shapes, argv = phase_runner(kernels)
-        _free()
-        phase_path_shapes("runner path", kernels, shapes)
-        phase_resume(cs_full, argv)
-        del cs_full
-        _free()
-        phase_card_vs_cpu_options()
-        for name in OPTION_SETS:
-            shapes = phase_options_path(kernels, name)
-            _free()
-            phase_path_shapes(f"{name} options path", kernels, shapes)
-        phase_normal_cost()
-        phase_card_vs_cpu_files()
-        cs_real, shapes = phase_real_path(kernels)
-        _free()
-        phase_path_shapes("real-data path", kernels, shapes)
-        shapes = phase_spec_path(kernels)
-        _free()
-        phase_path_shapes("spec path", kernels, shapes)
-        phase_compact(kernels, cs_real)
-        del cs_real
-        _free()
-        shapes = phase_urban_plume(kernels)
-        phase_path_shapes("urban plume", kernels, shapes)
-        shutil.rmtree(REAL_DIR, ignore_errors=True)
+        (run_decomposed if decomposed_only else run_all)(kernels)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

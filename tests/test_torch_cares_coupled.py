@@ -30,7 +30,7 @@ from wrf_partmc_tpu_torch.cares import build_cares_shape
 from wrf_partmc_tpu_torch.config import (DomainConfig, PartmcConfig, uniform_test_config,
                                          validate_config)
 from wrf_partmc_tpu_torch.convert import config_from_reference, from_numpy, to_numpy
-from wrf_partmc_tpu_torch.models.coupled.driver import CoupledModel, check_supported
+from wrf_partmc_tpu_torch.models.coupled.driver import CoupledModel
 from wrf_partmc_tpu_torch.utils.tree import tensor_leaves
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -177,6 +177,7 @@ OPTIONS = {
     "Kessler": dict(dynamics=dict(mp_physics=1)),
     "WSM5": dict(dynamics=dict(mp_physics=2), n_moist=5),
 }
+# options the port refused before it carried them
 UNPORTED = {
     "linear core": dict(dynamics=dict(dyn_opt="linear")),
 }
@@ -187,32 +188,38 @@ def _with(cfg, groups):
                           else kw for g, kw in groups.items()})
 
 
-@pytest.mark.parametrize("case", sorted(OPTIONS))
-def test_option_builds_and_steps(case):
-    """Each option the port once refused builds with the runner's em_uniform
-    case at 6x6x4 (live dynamics, emission on, 4 particles per cell) on the
-    CPU and takes one step to finite fields."""
+def _build_and_step(groups, case):
+    """The runner's em_uniform case at 6x6x4 (live dynamics, emission on, 4
+    particles per cell) with the option ``groups``, built on the CPU and
+    stepped once to finite fields.  Returns the model."""
     base = uniform_test_config(
         domain=DomainConfig(nx=6, ny=6, nz=4, dx=2000.0, dy=2000.0, ztop=4000.0),
         partmc=PartmcConfig(num_particles=4, max_particles=12, n_emit_slots=2,
                             do_coagulation=False, do_emission=True, do_mosaic=False))
     base = base.replace(dynamics=dataclasses.replace(base.dynamics, constant_velocity=False))
-    cfg = validate_config(_with(base, OPTIONS[case]))
-    check_supported(cfg)
+    cfg = validate_config(_with(base, groups))
     model, state = prun.build_model(cfg, "uniform", device="cpu")
     state = model(state)
     assert state.step == 1
     for a in tensor_leaves(state, "state").values():
         if a.is_floating_point():
             assert bool(torch.isfinite(a).all()), case
+    return model
+
+
+@pytest.mark.parametrize("case", sorted(OPTIONS))
+def test_option_builds_and_steps(case):
+    """Each option the port once refused builds and takes one step."""
+    _build_and_step(OPTIONS[case], case)
 
 
 @pytest.mark.parametrize("case", sorted(UNPORTED))
-def test_check_supported_refuses_unported(runs, case):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        check_supported(_with(runs[2].cfg, UNPORTED[case]))
+def test_check_supported_refuses_unported(case):
+    """The port refuses no option now: ``check_supported`` is gone with its
+    last refusal, and the linear core builds and steps with no ``mu``."""
+    model = _build_and_step(UNPORTED[case], case)
+    assert model.cfg.dynamics.dyn_opt == "linear"
 
 
 def test_check_supported_accepts_cares(runs):
-    check_supported(runs[2].cfg)
     assert isinstance(runs[2], CoupledModel)

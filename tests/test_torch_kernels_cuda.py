@@ -280,3 +280,65 @@ def test_gather_kernel_one_box_bit_exact(cuda, L1, L2):
     out = place.gather_rows(x, src)
     assert place.gather_rows_cuda.launches == before + 1
     assert torch.equal(out, place.gather_rows_plain(x, src))
+
+
+@pytest.mark.parametrize("shape", [(9, 40, 40), (3, 12, 12)])
+def test_linear_acoustic_k1_bit_exact(cuda, shape):
+    """K1 at the linear core's w-p solve: [nz-1, 1, 1] diagonals against a
+    [nz-1, ny, nx] right-hand side (the em_uniform and the test widths)."""
+    g = torch.Generator(device=cuda).manual_seed(shape[0])
+    dl, d, du = _system(g, (shape[0], 1, 1), cuda)
+    b = torch.randn(shape, generator=g, device=cuda)
+    _junk_then_empty(shape, cuda)
+    before = tridiag.thomas_solve.launches
+    x = tridiag.solve(dl, d, du, b)
+    assert tridiag.thomas_solve.launches == before + 1
+    assert torch.equal(x, tridiag.solve_scan(dl, d, du, b))
+
+
+def _step_close(out, ref):
+    """A step on the card against the CPU's: every dycore field rtol 1e-4
+    with a floor of 1e-4 of its scale (1e-5 m/s for w, 1e-3 for ph), the
+    per-cell represented number rtol 1e-4."""
+    for f in dataclasses.fields(ref.dyn):
+        a, b = getattr(out.dyn, f.name), getattr(ref.dyn, f.name)
+        if b is None:
+            assert a is None, f.name
+            continue
+        atol = max({"w": 1e-5, "ph": 1e-3}.get(f.name, 0.0), 1e-4 * float(b.abs().max()))
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=atol, msg=f.name)
+    torch.testing.assert_close(out.aero.total_num(), ref.aero.total_num(), rtol=1e-4, atol=0.0)
+
+
+def test_linear_coupled_step_launches_k1(cuda):
+    """One linear-core coupled step on the card: K1 1 + 2 + 4 times in the
+    acoustic substeps (n_sound = 4) and once in vertical diffusion, and the
+    step agrees with the CPU's."""
+    from wrf_partmc_tpu_torch.entry import build
+
+    model, state = build(12, 12, 4, n_part=16, cap=48, dyn_opt="linear", device="cpu")
+    ref = model(state)
+    before = tridiag.thomas_solve.launches
+    out = model.to(cuda)(state.to(cuda))
+    torch.cuda.synchronize()
+    assert tridiag.thomas_solve.launches - before == 7 + 1
+    _step_close(out.to("cpu"), ref)
+
+
+def test_world_of_one_nccl_step(cuda, tmp_path):
+    """A decomposed step in a world of one over NCCL on the card against a
+    world of one over gloo on the CPU (the 1x1 mesh)."""
+    from wrf_partmc_tpu_torch.entry import build
+    from wrf_partmc_tpu_torch.parallel import distributed as pdist
+
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        pdist.init(f"file://{tmp_path}/rdv-{dev}", 1, 0, dev, timeout_s=120)
+        try:
+            mesh = pdist.global_mesh()
+            assert mesh.device.type == dev and mesh.shape == (1, 1)
+            model, state = build(12, 12, 4, n_part=16, cap=48, device=mesh.device, mesh=mesh)
+            outs[dev] = model(state).to("cpu")
+        finally:
+            pdist.shutdown()
+    _step_close(outs["cuda"], outs["cpu"])

@@ -35,7 +35,8 @@ def test_port_imports_no_jax():
               "models.physics.cumulus", "models.physics.sfs_nba",
               "models.physics.scm_forcing", "models.dycore.real", "models.partmc.box",
               "models.partmc.box_model", "utils.llxy", "utils.spec_file", "tools.make_inputs",
-              "tools.mozbc", "tools.make_emissions", "tools.urban_plume"):
+              "tools.mozbc", "tools.make_emissions", "tools.urban_plume",
+              "parallel.mesh", "parallel.halo", "parallel.distributed", "parallel.launch"):
         assert "wrf_partmc_tpu_torch." + m in out["modules"], m
     assert out["jax"] == []
     assert out["reference"] == []

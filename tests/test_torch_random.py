@@ -54,7 +54,9 @@ def test_uniform_range_bitwise():
     np.testing.assert_array_equal(a, rng.uniform(kd(k), (1000,), "cpu", lo, 1.0).numpy())
 
 
-@pytest.mark.parametrize("lo,hi", [(0, 4), (0, 10), (-3, 17), (0, 1000), (5, 5)])
+# spans past 2^16 take jax's wrapped uint32 multiplier (0 for span > 2^16)
+@pytest.mark.parametrize("lo,hi", [(0, 4), (0, 10), (-3, 17), (0, 1000), (5, 5),
+                                   (0, 70000), (-2**31, 2**31 - 1)])
 def test_randint_scalar_bitwise(lo, hi):
     for step in range(64):
         k = jax.random.fold_in(jax.random.key(5), step)

@@ -69,10 +69,12 @@ def cares_config(nx, ny, nz, n_part=100, cap=128, dt=30.0, chem_on=True) -> Conf
 
 
 def build_cares_shape(nx, ny, nz, n_part=100, cap=128, dt=30.0, chem_on=True,
-                      n_class_sources=6, device="cuda"):
+                      n_class_sources=6, device="cuda", mesh=None):
     """Build the CARES-shaped coupled model and its initial state on
     ``device`` (the card unless the caller names another; raises on a host
-    without CUDA).  Returns ``(CoupledModel, CoupledState)``."""
+    without CUDA).  With ``mesh`` (``parallel.mesh.Mesh``), the state holds
+    this rank's block of the particles and gases.  Returns
+    ``(CoupledModel, CoupledState)``."""
     require_device(device)
     cfg = cares_config(nx, ny, nz, n_part, cap, dt, chem_on)
     ad = make_aero_data(device=device)
@@ -94,8 +96,9 @@ def build_cares_shape(nx, ny, nz, n_part=100, cap=128, dt=30.0, chem_on=True,
     qsat = saturation_mixing_ratio(temperature(dyn, grid), total_pressure(dyn, grid))
     dyn = dataclasses.replace(dyn, moist=set_at(dyn.moist, 0,
                                                 0.5 * torch.clamp(qsat, max=0.01), dim=0))
-    cs = init_coupled(cfg, grid, ad, gd, dyn)
-    aero = populate_from_dist(ad, cfg, grid, ic, rng.key(0))
+    cs = init_coupled(cfg, grid, ad, gd, dyn, mesh=mesh)
+    aero = populate_from_dist(ad, cfg, grid, ic, rng.key(0),
+                              block=mesh.draw_block(ny, nx) if mesh is not None else None)
     gas = cs.gas
     if chem_on:
         for name, ppb in GAS_BACKGROUND.items():
@@ -108,4 +111,4 @@ def build_cares_shape(nx, ny, nz, n_part=100, cap=128, dt=30.0, chem_on=True,
                    width=cfg.boundary.spec_zone + cfg.boundary.relax_zone, chem=True)
     exch = torch.zeros((grid.nz + 1, grid.ny, grid.nx), dtype=torch.float32,
                        device=device)
-    return CoupledModel(cfg, grid, ad, gd, scn, exch, seed=0, bdy=bdy), cs
+    return CoupledModel(cfg, grid, ad, gd, scn, exch, seed=0, bdy=bdy, mesh=mesh), cs

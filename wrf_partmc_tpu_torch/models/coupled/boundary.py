@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from ...config import Config
 from ...grid import Grid
+from ...parallel.mesh import shard_field
 from ..dycore.state import DycoreState
 from ..partmc.aero_data import AeroData
 from ..partmc.aero_state import AeroState
@@ -24,9 +25,10 @@ from ..partmc.dist import sample_particles
 from ..partmc.scenario import Scenario
 
 
-def edge_inflow_masks(dyn: DycoreState, grid: Grid, cfg: Config):
+def edge_inflow_masks(dyn: DycoreState, grid: Grid, cfg: Config, mesh=None):
     """[nz, ny, nx] bool: edge cells whose face-normal wind blows into the
-    domain (u at west faces, v at south faces)."""
+    domain (u at west faces, v at south faces); with ``mesh``, this rank's
+    block of it."""
     nz, ny, nx = grid.nz, grid.ny, grid.nx
     dev = dyn.u.device
     ii = torch.arange(nx, device=dev).reshape(1, 1, nx)
@@ -39,33 +41,36 @@ def edge_inflow_masks(dyn: DycoreState, grid: Grid, cfg: Config):
     if not b.periodic_y:
         m = m | ((jj == 0) & (dyn.v > 0.0))
         m = m | ((jj == ny - 1) & (torch.roll(dyn.v, -1, -2) < 0.0))
-    return m
+    return shard_field(m, mesh)
 
 
 def apply_gas_open_bc(gas, dyn: DycoreState, scn: Scenario, grid: Grid,
-                      cfg: Config):
-    """gas: [nz, ny, nx, G] ppb; inflow edge cells take the background."""
+                      cfg: Config, mesh=None):
+    """gas: [nz, ny, nx, G] ppb (with ``mesh``, this rank's block); inflow
+    edge cells take the background."""
     if cfg.boundary.periodic_x and cfg.boundary.periodic_y:
         return gas
-    inflow = edge_inflow_masks(dyn, grid, cfg)
+    inflow = edge_inflow_masks(dyn, grid, cfg, mesh)
     return torch.where(inflow[..., None], scn.back_gas, gas)
 
 
 def resample_inflow_particles(aero: AeroState, dyn: DycoreState,
                               scn: Scenario, aero_data: AeroData, grid: Grid,
-                              cfg: Config, key) -> AeroState:
+                              cfg: Config, key, mesh=None) -> AeroState:
     """Replace the populations of inflow edge cells with a fresh background
     sample of ``num_particles`` entries (slots beyond them left dead).  As
     in the reference, the source-attribution and hysteresis fields of those
-    cells are left as they were."""
+    cells are left as they were.  With ``mesh``, ``aero`` is this rank's
+    block and it draws the block's slice of the global sample."""
     if cfg.boundary.periodic_x and cfg.boundary.periodic_y:
         return aero
     cell_shape = aero.cell_shape
-    inflow = edge_inflow_masks(dyn, grid, cfg)
+    inflow = edge_inflow_masks(dyn, grid, cfg, mesh)
+    block = mesh.draw_block(grid.ny, grid.nx) if mesh is not None else None
     V = grid.cell_volume.reshape(-1, 1, 1).expand(cell_shape)
     n_bc = cfg.partmc.num_particles
     vol, num, src, wcl = sample_particles(key, scn.back_dist, aero_data, n_bc,
-                                          V, cell_shape)
+                                          V, cell_shape, block)
     pad = lambda a: F.pad(a, (0, aero.capacity - n_bc))
     m = inflow[..., None]
     pid = aero.next_id[..., None] + torch.arange(n_bc, dtype=torch.int32,

@@ -1,10 +1,11 @@
 """The coupled WRF-PartMC timestep.
 
-Port of the single-device path of ``wrf_partmc_tpu/models/coupled/driver.py``
-(``mesh=None``): partmc_to_wrf -> ARW dycore (with Kessler, WSM5 or
-Morrison microphysics for mp_physics 1/2/10) -> specified + relaxation
-lateral boundaries (with a wrfbdy) -> the surface layer and PBL (YSU for
-bl_physics=1, MYJ TKE for 2) -> implicit vertical diffusion ->
+Port of ``wrf_partmc_tpu/models/coupled/driver.py``: partmc_to_wrf -> the
+dycore (the ARW core, or the linear core for ``dyn_opt != "arw"``, with
+Kessler, WSM5 or Morrison microphysics for mp_physics 1/2/10) ->
+specified + relaxation lateral boundaries (with a wrfbdy) -> the surface
+layer and PBL (YSU for bl_physics=1, MYJ TKE for 2) -> implicit vertical
+diffusion ->
 partmc_from_wrf -> emission and the sea-salt source -> aerosol optics
 (do_optical) -> the chemistry macro-step every ``partmc_chem_dt``
 (nucleation, coagulation, MOSAIC with the aerosol-attenuated photolysis,
@@ -26,6 +27,21 @@ chemistry cadence is a Python ``if``.
 Units at the coupling surface: chem tracers carry ppm, gas states ppb;
 NUM_CONC class tracers carry number per kg of dry air, particle
 populations absolute represented number per cell.
+
+With a ``mesh`` (``parallel.mesh.Mesh``) the step is decomposed over ranks:
+each rank holds its block of the particles, the gases and the removal
+counters, ``[nz, ny/py, nx/px, ...]``, and the whole Eulerian state (dycore,
+land, PBL), which every rank advances on the whole domain, so the dycore,
+advection, vertical diffusion, physics and radiation give the undecomposed
+result with no halo.  The particle operations run on the block: emission
+and inflow resampling draw the block's slice of the global draws; the
+cell-local operations (microphysics, deposition, rebalance) take their
+keys folded with the rank's mesh row, then column
+(:func:`cell_local_sharded`), as the JAX package's ``shard_map`` does; the
+transport sends the movers of the block's edge columns to the neighbours.
+All-gathers bring the block fields the Eulerian side reads back to every
+rank: one for the per-class number and the gases at the start of the step
+(``partmc_to_wrf``), one for the aerosol optics when ``do_optical`` is on.
 """
 
 from __future__ import annotations
@@ -41,6 +57,8 @@ from ...config import Config
 from ...grid import Grid
 from ...ops.stencil import AXIS_X, AXIS_Y, shift
 from ...ops.vdiff import vertical_diffusion_state
+from ...parallel.distributed import gather_field
+from ...parallel.mesh import Mesh, shard_field
 from ...utils import rng
 from ...utils.tree import tensor_leaves, tree_map, with_leaves
 from ..dycore.solve import solve_step
@@ -55,7 +73,7 @@ from ..partmc.env_state import EnvState
 from ..partmc.gas_data import GasData
 from ..partmc.mosaic import mosaic_timestep
 from ..partmc.nucleate import nucleate_step
-from ..partmc.optics import bulk_optical_props
+from ..partmc.optics import BulkOptics, bulk_optical_props
 from ..partmc.scenario import Scenario, update_aero_state, update_gas_state
 from ..partmc.seasalt import sample_seasalt
 from ..partmc.simple_chem import chem_step
@@ -91,17 +109,25 @@ class CoupledState:
 
 
 def cell_air_mass(dyn: DycoreState, grid: Grid):
-    """[nz, ny, nx] dry-air mass per cell [kg]: m = mu_d deta dA / g."""
-    mu_d = grid.mub + dyn.mu
-    return (mu_d[None] * grid.deta.reshape(-1, 1, 1) / c.GRAV
-            * (grid.dx * grid.dy))
+    """[nz, ny, nx] dry-air mass per cell [kg]: m = mu_d deta dA / g on the
+    mass-coordinate core, the base-state density times the cell volume on
+    the linear core."""
+    if dyn.mu is not None:
+        mu_d = grid.mub + dyn.mu
+        return (mu_d[None] * grid.deta.reshape(-1, 1, 1) / c.GRAV
+                * (grid.dx * grid.dy))
+    rho_b, _, _ = base_profiles(grid)
+    return (grid.cell_volume * rho_b).reshape(-1, 1, 1).expand(dyn.theta_p.shape)
 
 
 def cell_volume_3d(dyn: DycoreState, grid: Grid):
-    """[nz, ny, nx] actual grid-cell volume [m3] from the geopotential."""
-    phi = grid.phb + dyn.ph
-    dz = (phi[1:] - phi[:-1]) / c.GRAV
-    return dz * (grid.dx * grid.dy)
+    """[nz, ny, nx] actual grid-cell volume [m3] from the geopotential, or
+    the base-state layer depths on the linear core."""
+    if dyn.ph is not None:
+        phi = grid.phb + dyn.ph
+        dz = (phi[1:] - phi[:-1]) / c.GRAV
+        return dz * (grid.dx * grid.dy)
+    return grid.cell_volume.reshape(-1, 1, 1).expand(dyn.theta_p.shape)
 
 
 def step_time(step: int, dt: float) -> float:
@@ -122,19 +148,28 @@ def make_env(dyn: DycoreState, grid: Grid, cfg: Config, step: int) -> EnvState:
     logz = torch.log(torch.clamp(grid.z_half[0] / cfg.dynamics.sfc_z0, min=1.1))
     us2d = c.KARMAN * torch.clamp(spd, min=0.1) / logz
     ustar = us2d.expand(temp.shape)
-    phi = grid.phb + dyn.ph
-    z = 0.5 * (phi[1:] + phi[:-1]) / c.GRAV
+    if dyn.ph is not None:
+        phi = grid.phb + dyn.ph
+        z = 0.5 * (phi[1:] + phi[:-1]) / c.GRAV
+    else:
+        z = grid.z_half.reshape(-1, 1, 1).expand(temp.shape)
     return EnvState(temp=temp, pressure=pres, rel_humid=rh, height=z,
                     cell_volume=vol, ustar=ustar,
                     elapsed_time=step_time(step, cfg.dynamics.dt))
 
 
-def partmc_to_wrf(cs: CoupledState, grid: Grid, cfg: Config) -> DycoreState:
-    """Particle number per class and gases into the Eulerian tracers."""
+def partmc_to_wrf(cs: CoupledState, grid: Grid, cfg: Config,
+                  mesh: Mesh | None = None) -> DycoreState:
+    """Particle number per class and gases into the Eulerian tracers; with
+    ``mesh``, both gathered from every rank's block in one all-gather."""
     air_mass = cell_air_mass(cs.dyn, grid)
     nbc = cs.aero.num_by_class(cfg.n_class)                  # [nz,ny,nx,C]
+    gas = cs.gas
+    if mesh is not None:
+        both = gather_field(torch.cat([nbc, gas], dim=-1), mesh)
+        nbc, gas = both[..., :cfg.n_class], both[..., cfg.n_class:]
     num_tr = nbc.movedim(-1, 0) / air_mass
-    chem = cs.gas.movedim(-1, 0) / 1000.0                    # ppb -> ppm
+    chem = gas.movedim(-1, 0) / 1000.0                       # ppb -> ppm
     return dataclasses.replace(cs.dyn, num_conc=num_tr.contiguous(),
                                chem=chem.contiguous())
 
@@ -145,22 +180,26 @@ def partmc_from_wrf(dyn: DycoreState) -> torch.Tensor:
 
 
 def emission_step(aero: AeroState, gas, env: EnvState, aero_data: AeroData,
-                  scn: Scenario, cfg: Config, grid: Grid, dyn: DycoreState, t, key):
+                  scn: Scenario, cfg: Config, grid: Grid, dyn: DycoreState, t, key,
+                  mesh: Mesh | None = None):
     """Per-dt scenario forcing: gas emission/dilution, aerosol
     emission/dilution (``do_emission``) and the sea-salt surface source
     (``seasalt_param``), which emits into level 0 only from the cell-centred
-    first-level wind of ``dyn``."""
+    first-level wind of ``dyn``.  With ``mesh``, ``aero``, ``gas`` and
+    ``env`` are this rank's block, ``dyn`` is whole, and the draws are the
+    block's slice of the global draws."""
     pc = cfg.partmc
+    block = mesh.draw_block(grid.ny, grid.nx) if mesh is not None else None
     dt = cfg.dynamics.dt
     k_scn, k_ss = rng.split(key)
     gas = update_gas_state(scn, gas, t, dt)
     if pc.do_emission:
         aero = update_aero_state(scn, aero, aero_data, t, dt, k_scn,
-                                 pc.n_emit_slots, env.cell_volume)
+                                 pc.n_emit_slots, env.cell_volume, block)
     if pc.seasalt_param > 0:
         u_c = 0.5 * (dyn.u[0] + shift(dyn.u[0], 1, AXIS_X))
         v_c = 0.5 * (dyn.v[0] + shift(dyn.v[0], 1, AXIS_Y))
-        u10 = torch.sqrt(u_c ** 2 + v_c ** 2)                   # [ny, nx]
+        u10 = shard_field(torch.sqrt(u_c ** 2 + v_c ** 2), mesh)   # [ny, nx]
         cell_shape = aero.cell_shape
         spume = pc.seasalt_class_spume if pc.seasalt_class_spume >= 0 else None
         vol, num, src, wcl = sample_seasalt(
@@ -168,7 +207,7 @@ def emission_step(aero: AeroState, gas, env: EnvState, aero_data: AeroData,
             pc.n_emit_slots, cell_shape, param=pc.seasalt_param,
             source=pc.seasalt_source,
             w_class=min(cfg.n_class - 1, pc.seasalt_class_film),
-            w_class_spume=spume)
+            w_class_spume=spume, block=block)
         k0 = torch.arange(num.shape[0], device=num.device).reshape(-1, 1, 1, 1) == 0
         aero = add_particles(aero, vol, torch.where(k0, num, 0.0), src, wcl, time=t)
     return aero, gas
@@ -248,12 +287,18 @@ def surface_deposition(aero: AeroState, env: EnvState, aero_data: AeroData,
         vol=torch.where(keep[..., None, :], aero.vol, 0.0))
 
 
-def check_supported(cfg: Config) -> None:
-    """Refuse the linear core, the one option of the reference's step that
-    the port does not carry."""
-    if cfg.dynamics.dyn_opt != "arw":
-        raise NotImplementedError("not ported: dynamics.dyn_opt != 'arw' "
-                                  "(the linear core)")
+def cell_local_sharded(mesh: Mesh | None, fn, sharded, repl):
+    """Run a cell-local particle operation (microphysics, deposition,
+    rebalance) on this rank's block: the twin of the JAX package's
+    ``_cell_local_sharded``.  ``sharded``: the block arguments (cell fields
+    ``[nz, ny_l, nx_l, ...]`` or ``[ny_l, nx_l]``, or None); ``repl``: the
+    arguments every rank shares, of which each ``rng.Key`` is folded with
+    the rank's mesh row and then its column, so the blocks draw different
+    streams.  ``fn`` is called as ``fn(*sharded, *repl)``."""
+    if mesh is not None:
+        repl = tuple(rng.fold_in(rng.fold_in(a, mesh.iy), mesh.ix)
+                     if isinstance(a, rng.Key) else a for a in repl)
+    return fn(*sharded, *repl)
 
 
 def _season(cfg: Config) -> str:
@@ -270,13 +315,16 @@ TRANSPORT_COUNTERS = ("overflow_class", "overflow_free", "movers")
 def coupled_step(cs: CoupledState, grid: Grid, cfg: Config,
                  aero_data: AeroData, gas_data: GasData, scn: Scenario, exch_h,
                  base_seed_key, mech: Mechanism | None = None,
-                 bdy: BdyData | None = None, bdy_w2=None):
+                 bdy: BdyData | None = None, bdy_w2=None, mesh: Mesh | None = None):
     """One full coupled timestep.  ``bdy``: the wrfbdy time series of the
     specified + relaxation boundaries (``bdy_w2`` its zone weights).
-    Returns (new_state, diag): the transport saturation counters
-    (``TRANSPORT_COUNTERS``, 0-d tensors, zero with transport off) and, on
-    a chemistry step with ``record_aero_info``, the coagulation removal
-    records ``coag_removed_id`` / ``coag_other_id`` [nz, ny, nx, P//2]."""
+    ``mesh``: the decomposition (module docstring); ``cs`` then holds this
+    rank's blocks.  Returns (new_state, diag): the transport saturation
+    counters (``TRANSPORT_COUNTERS``, 0-d tensors, zero with transport off;
+    summed over the ranks) and, on a chemistry step with
+    ``record_aero_info``, the coagulation removal records
+    ``coag_removed_id`` / ``coag_other_id`` [nz, ny, nx, P//2] (the
+    block's)."""
     pc = cfg.partmc
     dy = cfg.dynamics
     dt = dy.dt
@@ -295,7 +343,8 @@ def coupled_step(cs: CoupledState, grid: Grid, cfg: Config,
     t = step_time(cs.step, dt)
     cosz = solar_cos_zenith(cfg.domain, t)          # 0-d CPU tensor, a scalar operand
 
-    dyn = partmc_to_wrf(cs, grid, cfg)
+    blk = lambda f: shard_field(f, mesh)
+    dyn = partmc_to_wrf(cs, grid, cfg, mesh)
     dyn2, diag = solve_step(dyn, grid, cfg)
     if bdy is not None:
         dyn2 = apply_specified_relax(dyn2, bdy, t, grid, cfg, bdy_w2)
@@ -334,15 +383,16 @@ def coupled_step(cs: CoupledState, grid: Grid, cfg: Config,
             kv = kv + dy.kvdif
         dyn2 = vertical_diffusion_state(dyn2, kv, grid, rho_b, dt)
 
-    gas = partmc_from_wrf(dyn2)
+    gas = blk(partmc_from_wrf(dyn2))
     env = make_env(dyn2, grid, cfg, cs.step)
     if sfc_ustar is not None:
         env = dataclasses.replace(env, ustar=sfc_ustar.expand(env.temp.shape))
+    env_l = tree_map(blk, env)
 
     if pc.do_emission or pc.seasalt_param > 0:
         a0 = aero
-        aero, gas = emission_step(aero, gas, env, aero_data, scn, cfg, grid, dyn2,
-                                  t, keys[rng.STREAM_EMISSION])
+        aero, gas = emission_step(aero, gas, env_l, aero_data, scn, cfg, grid, dyn2,
+                                  t, keys[rng.STREAM_EMISSION], mesh)
         record("dilution", a0, aero)
     else:
         gas = update_gas_state(scn, gas, t, dt)
@@ -350,21 +400,27 @@ def coupled_step(cs: CoupledState, grid: Grid, cfg: Config,
     # aerosol optics, for the radiation direct effect and the photolysis
     # attenuation; from the population before this step's chemistry
     radiation = dy.ra_physics in (1, 4)
-    optics = None
+    optics = optics_l = None
     if pc.do_optical and radiation:
-        optics = bulk_optical_props(aero, aero_data, grid.dz, env.cell_volume)
+        optics = optics_l = bulk_optical_props(aero, aero_data, grid.dz, env_l.cell_volume)
+        if mesh is not None:
+            whole = gather_field(torch.stack([optics_l.tauaer, optics_l.waer,
+                                              optics_l.gaer]), mesh, dims=(3, 4))
+            optics = BulkOptics(tauaer=whole[0], waer=whole[1], gaer=whole[2])
 
     tdiag = {}
     if ((pc.do_coagulation or pc.do_condensation or pc.do_nucleation
          or pc.do_mosaic) and cs.step % m_chem == 0):
         j_scale = None
-        if optics is not None and pc.do_mosaic:
-            j_scale = photolysis_aerosol_factor(optics.tauaer, optics.waer,
-                                                optics.gaer, cosz)
+        if optics_l is not None and pc.do_mosaic:
+            # column-local: the block's columns give the block of the whole
+            j_scale = photolysis_aerosol_factor(optics_l.tauaer, optics_l.waer,
+                                                optics_l.gaer, cosz)
         a0 = aero
-        aero, gas, coag_rem, events = microphysics_step(
-            aero, gas, env, aero_data, gas_data, cfg, t, keys[rng.STREAM_COAG],
-            mech=mech, j_scale=j_scale)
+        aero, gas, coag_rem, events = cell_local_sharded(
+            mesh, lambda a_, g_, env_, js_, k_: microphysics_step(
+                a_, g_, env_, aero_data, gas_data, cfg, t, k_, mech=mech, j_scale=js_),
+            (aero, gas, env_l, j_scale), (keys[rng.STREAM_COAG],))
         if rem is not None:
             # coagulation's losses apart from the rest of the macro-step's
             # (nucleation, MOSAIC, condensation)
@@ -412,7 +468,7 @@ def coupled_step(cs: CoupledState, grid: Grid, cfg: Config,
         a0 = aero
         aero, trans = transport_step(aero, diag.probs, diag.xkhh, exch_h, grid,
                                      cfg, dt, keys[rng.STREAM_TRANSPORT],
-                                     rho3=rho3, dz3=dz3)
+                                     rho3=rho3, dz3=dz3, mesh=mesh)
         tdiag.update(trans)
         if not periodic:
             record("outflow", a0, aero)
@@ -422,17 +478,23 @@ def coupled_step(cs: CoupledState, grid: Grid, cfg: Config,
 
     if not periodic:
         bc_key = rng.step_key(base_seed_key, cs.step, rng.STREAM_BC)
-        aero = resample_inflow_particles(aero, dyn2, scn, aero_data, grid, cfg, bc_key)
-        gas = apply_gas_open_bc(gas, dyn2, scn, grid, cfg)
+        aero = resample_inflow_particles(aero, dyn2, scn, aero_data, grid, cfg, bc_key,
+                                         mesh)
+        gas = apply_gas_open_bc(gas, dyn2, scn, grid, cfg, mesh)
     if pc.do_deposition:
         a0 = aero
-        aero = surface_deposition(aero, env, aero_data, grid, cfg,
-                                  keys[rng.STREAM_DEPOSITION], rmol=sfc_rmol,
-                                  dz1=dz3[0] if dz3 is not None else None)
+        aero = cell_local_sharded(
+            mesh, lambda a_, env_, rmol_, dz1_, k_: surface_deposition(
+                a_, env_, aero_data, grid, cfg, k_, rmol=rmol_, dz1=dz1_),
+            (aero, env_l, None if sfc_rmol is None else blk(sfc_rmol),
+             None if dz3 is None else blk(dz3[0])),
+            (keys[rng.STREAM_DEPOSITION],))
         record("deposition", a0, aero)
     a0 = aero
-    aero = rebalance(aero, keys[rng.STREAM_REBALANCE], pc.num_particles,
-                     pc.allow_halving, pc.allow_doubling)
+    aero = cell_local_sharded(
+        mesh, lambda a_, k_: rebalance(a_, k_, pc.num_particles, pc.allow_halving,
+                                       pc.allow_doubling),
+        (aero,), (keys[rng.STREAM_REBALANCE],))
     record("halving", a0, aero)
     # every leaf contiguous (moist, chem and gas come out as transposed
     # views): a state read back from a restart is contiguous, and reductions
@@ -445,11 +507,15 @@ def coupled_step(cs: CoupledState, grid: Grid, cfg: Config,
 
 def init_coupled(cfg: Config, grid: Grid, aero_data: AeroData,
                  gas_data: GasData, dyn: DycoreState,
-                 ivgtyp=None, isltyp=None) -> CoupledState:
+                 ivgtyp=None, isltyp=None, mesh: Mesh | None = None) -> CoupledState:
+    """The initial coupled state around ``dyn``: no particles, no gases, the
+    land and PBL states of the configuration.  With ``mesh``, the
+    particles, gases and removal counters are this rank's block."""
     dev = grid.dz.device
+    ny, nx = (grid.ny, grid.nx) if mesh is None else mesh.block_shape(grid.ny, grid.nx)
     aero = zero_state(aero_data, cfg.partmc.max_particles,
-                      cell_shape=(grid.nz, grid.ny, grid.nx), device=dev)
-    gas = torch.zeros((grid.nz, grid.ny, grid.nx, gas_data.n_spec),
+                      cell_shape=(grid.nz, ny, nx), device=dev)
+    gas = torch.zeros((grid.nz, ny, nx, gas_data.n_spec),
                       dtype=torch.float32, device=dev)
     t_sfc0 = float(grid.t_base[0])            # theta ~ T at the surface
     land = None
@@ -461,7 +527,7 @@ def init_coupled(cfg: Config, grid: Grid, aero_data: AeroData,
     pbl_q2 = init_q2(grid) if cfg.dynamics.bl_physics == 2 else None
     removals = None
     if cfg.partmc.record_removals:
-        z3 = torch.zeros((grid.nz, grid.ny, grid.nx), dtype=torch.float32, device=dev)
+        z3 = torch.zeros((grid.nz, ny, nx), dtype=torch.float32, device=dev)
         removals = {k: z3 for k in REMOVAL_CAUSES}
     return CoupledState(dyn=dyn, aero=aero, gas=gas, step=0, land=land,
                         pbl_q2=pbl_q2, removals=removals)
@@ -476,14 +542,17 @@ class CoupledModel(torch.nn.Module):
     records) is kept in ``last_diag``.  ``set_scenario`` swaps the
     ``Scenario`` between steps; ``scenario_fn(t)``, when a file-driven
     build gives one, is the scenario for model time t, which the runner
-    sets before each step."""
+    sets before each step.  ``mesh``: the decomposition over ranks; the
+    state is then this rank's (``coupled_step``)."""
 
     def __init__(self, cfg: Config, grid: Grid, aero_data: AeroData,
                  gas_data: GasData, scn: Scenario, exch_h, seed: int = 0,
-                 bdy: BdyData | None = None, scenario_fn=None):
+                 bdy: BdyData | None = None, scenario_fn=None, mesh: Mesh | None = None):
         super().__init__()
-        check_supported(cfg)
+        if mesh is not None:
+            mesh.block_shape(grid.ny, grid.nx)      # raises unless it divides the grid
         self.cfg = cfg
+        self.mesh = mesh
         self.scenario_fn = scenario_fn
         self.base_key = rng.base_key(seed)
         self._templates = {}
@@ -554,5 +623,19 @@ class CoupledModel(torch.nn.Module):
         out, self.last_diag = coupled_step(
             state, self.grid, self.cfg, self.aero_data, self.gas_data, self.scn,
             self.exch_h, self.base_key, mech=self.mech, bdy=bdy,
-            bdy_w2=self.bdy_w2 if bdy is not None else None)
+            bdy_w2=self.bdy_w2 if bdy is not None else None, mesh=self.mesh)
         return out
+
+
+def run_coupled(cs: CoupledState, grid: Grid, cfg: Config, aero_data: AeroData,
+                gas_data: GasData, scn: Scenario, exch_h, n_steps: int, seed: int = 0,
+                mesh: Mesh | None = None) -> CoupledState:
+    """``n_steps`` coupled steps from ``cs`` with the base key of ``seed``
+    (the JAX package's ``run_coupled``); the transport counters of the last
+    step are dropped."""
+    key = rng.base_key(seed)
+    mech = build_mechanism(device=grid.dz.device) if uses_cbmz(cfg, gas_data) else None
+    for _ in range(n_steps):
+        cs, _ = coupled_step(cs, grid, cfg, aero_data, gas_data, scn, exch_h, key,
+                             mech=mech, mesh=mesh)
+    return cs

@@ -53,15 +53,19 @@ def populate_from_number_field(aero_data: AeroData, cfg: Config, grid: Grid,
 
 
 def populate_from_dist(aero_data: AeroData, cfg: Config, grid: Grid,
-                       dist: AeroDist, key, n_per_cell: int | None = None) -> AeroState:
+                       dist: AeroDist, key, n_per_cell: int | None = None,
+                       block=None) -> AeroState:
     """Sample the mode set into every cell; the E sampled entries fill slots
-    0..E-1 directly (``fill_fresh``, no placement kernel)."""
+    0..E-1 directly (``fill_fresh``, no placement kernel).  With ``block``
+    (``rng.Block``), only a rank's block of cells, with the block's slice of
+    the global draws."""
     if n_per_cell is None:
         n_per_cell = cfg.partmc.num_particles
-    cell_shape = (grid.nz, grid.ny, grid.nx)
+    cell_shape = ((grid.nz, grid.ny, grid.nx) if block is None
+                  else (grid.nz, block.ny_l, block.nx_l))
     V = grid.cell_volume.reshape(-1, 1, 1).expand(cell_shape)
     vol, num, src, wcl = sample_particles(key, dist, aero_data, n_per_cell,
-                                          V, cell_shape)
+                                          V, cell_shape, block)
     return fill_fresh(aero_data, cfg.partmc.max_particles, vol, num, src, wcl)
 
 

@@ -1,11 +1,13 @@
 """Stochastic particle transport driven by captured advective fluxes.
 
-Port of the single-device path of
-``wrf_partmc_tpu/models/coupled/transport.py``: per-face horizontal
-probabilities (advective outflow + eddy diffusion), the per-column vertical
-operator R = B^N A, the preweight acceptance, the per-particle move draw,
-the rebucket that moves movers into free slots of their destination
-cells, and the open-boundary outflow discard.
+Port of ``wrf_partmc_tpu/models/coupled/transport.py``: per-face
+horizontal probabilities (advective outflow + eddy diffusion), the
+per-column vertical operator R = B^N A, the preweight acceptance, the
+per-particle move draw, the rebucket that moves movers into free slots of
+their destination cells, and the open-boundary outflow discard; on one
+device (``transport_step``) or on each rank's block of a decomposed domain
+(``transport_step_sharded``), where the movers of a block's edge columns go
+to the neighbouring rank.
 
 The rebucket keeps the reference's slot layout exactly: within-cell ranks of
 each destination class are a per-class exclusive cumsum (the reference's bf16
@@ -25,8 +27,11 @@ from ...grid import Grid
 from ...ops.advection import OutflowProbs
 from ...ops.place import gather_rows, scatter_rows
 from ...ops.stencil import shift
+from ...parallel import halo
+from ...parallel.mesh import Mesh
 from ...utils import rng
 from ...utils.at import set_at
+from ...utils.tree import tree_map
 from ..partmc.aero_state import AeroState, payload_channel_list, unpack_payload
 
 
@@ -121,24 +126,44 @@ def _count_by_class(mask, w_class, n_class: int):
                         for c in range(n_class)])
 
 
-def preweight_acceptance(aero: AeroState, ph, R, cfg: Config):
+def _pad_periodic(f):
+    """f [..., ny, nx] with a one-cell periodic halo on its last two axes."""
+    f = torch.cat([f[..., -1:, :], f, f[..., :1, :]], dim=-2)
+    return torch.cat([f[..., -1:], f, f[..., :1]], dim=-1)
+
+
+def preweight_acceptance(aero: AeroState, ph, R, cfg: Config, mesh: Mesh | None = None):
     """Pre-sampling acceptance [nz, ny, nx] in [1/8, 1] that bounds the
     expected arrivals at each cell by its free capacity (the reference's
     ``trans_aero_preweight``).  On an open axis nothing arrives from
-    outside the domain."""
+    outside the domain.  With ``mesh``, ``aero``/``ph``/``R`` are this
+    rank's block and the neighbours' expected movers come through a
+    one-cell halo exchange (``halo.exchange_2d``)."""
     pxm, pxp, pym, pyp = ph
     n_cf = _count_by_class(aero.alive, aero.w_class, ph[0].shape[0])
 
-    arr_xm = torch.roll(pxm * n_cf, -1, dims=-1)
-    arr_xp = torch.roll(pxp * n_cf, 1, dims=-1)
-    arr_ym = torch.roll(pym * n_cf, -1, dims=-2)
-    arr_yp = torch.roll(pyp * n_cf, 1, dims=-2)
+    # expected movers through each face, with a one-cell halo; a mover
+    # through my east neighbour's west face (-x) lands in me, and so on
+    movers = torch.stack([pxm * n_cf, pxp * n_cf, pym * n_cf, pyp * n_cf])
+    pad = _pad_periodic(movers) if mesh is None else halo.exchange_2d(movers, 1, mesh)
+    arr_xm = pad[0][..., 1:-1, 2:]
+    arr_xp = pad[1][..., 1:-1, :-2]
+    arr_ym = pad[2][..., 2:, 1:-1]
+    arr_yp = pad[3][..., :-2, 1:-1]
+    first_y = first_x = last_y = last_x = True
+    if mesh is not None:
+        first_y, last_y = mesh.iy == 0, mesh.iy == mesh.py - 1
+        first_x, last_x = mesh.ix == 0, mesh.ix == mesh.px - 1
     if not cfg.boundary.periodic_x:
-        arr_xm = set_at(arr_xm, -1, 0.0, dim=-1)
-        arr_xp = set_at(arr_xp, 0, 0.0, dim=-1)
+        if last_x:
+            arr_xm = set_at(arr_xm, -1, 0.0, dim=-1)
+        if first_x:
+            arr_xp = set_at(arr_xp, 0, 0.0, dim=-1)
     if not cfg.boundary.periodic_y:
-        arr_ym = set_at(arr_ym, -1, 0.0, dim=-2)
-        arr_yp = set_at(arr_yp, 0, 0.0, dim=-2)
+        if last_y:
+            arr_ym = set_at(arr_ym, -1, 0.0, dim=-2)
+        if first_y:
+            arr_yp = set_at(arr_yp, 0, 0.0, dim=-2)
 
     stay_h = torch.clamp(1.0 - (pxm + pxp + pym + pyp), 0.0, 1.0)
     n_nh = stay_h * n_cf                                       # [C,nz,ny,nx]
@@ -187,16 +212,20 @@ def sample_moves(aero: AeroState, ph, R, key):
     return dj, di, torch.clamp(dest, 0, nz - 1), horizontal
 
 
-def open_boundary_drop(dj, di, horizontal, cfg: Config):
+def open_boundary_drop(dj, di, horizontal, cfg: Config, grid: Grid | None = None,
+                       ix0: int = 0, iy0: int = 0):
     """[nz, ny, nx, P] mask of particles sampled across an open lateral
-    boundary (the reference's outflow discard)."""
-    _, ny, nx, _ = dj.shape
+    boundary (the reference's outflow discard).  ``ix0``/``iy0`` are the
+    block's global offsets in ``grid`` (0 and the arrays' own extents on
+    one device)."""
+    _, nyl, nxl, _ = dj.shape
+    ny, nx = (nyl, nxl) if grid is None else (grid.ny, grid.nx)
     drop = torch.zeros(dj.shape, dtype=torch.bool, device=dj.device)
     if not cfg.boundary.periodic_x:
-        gi = torch.arange(nx, device=dj.device).reshape(1, 1, nx, 1) + di
+        gi = ix0 + torch.arange(nxl, device=dj.device).reshape(1, 1, nxl, 1) + di
         drop = drop | (horizontal & ((gi < 0) | (gi >= nx)))
     if not cfg.boundary.periodic_y:
-        gj = torch.arange(ny, device=dj.device).reshape(1, ny, 1, 1) + dj
+        gj = iy0 + torch.arange(nyl, device=dj.device).reshape(1, nyl, 1, 1) + dj
         drop = drop | (horizontal & ((gj < 0) | (gj >= ny)))
     return drop
 
@@ -209,33 +238,37 @@ def _caps(cfg: Config, P: int):
     return av, ah
 
 
-def _reorder_minis(minis, nz, nyl, nxl, ch, Av, Ah):
+def _reorder_minis(minis, nz, nyl, nxl, ch, Av, Ah, roll=None):
     """Per-cell mover mini-regions [C, ch, F1] -> per-destination-cell arrival
     buffers [C, ch, Av + 4 Ah].  Vertical ranks are column-global, so each
     (dest level, rank) slot is claimed by at most one source cell and the
     column arrival buffer is the sum over source levels; horizontal movers
     shift one column over.  The shift wraps, which is right on a periodic
     axis and harmless on an open one: movers across an open edge were
-    dropped before, so the wrapped rows are empty."""
+    dropped before, so the wrapped rows are empty.  ``roll(slab, shift,
+    axis)`` replaces ``torch.roll`` for the horizontal shifts (on a block,
+    the wrapped column comes from the neighbouring rank)."""
+    roll = roll or (lambda slab, sh, axis: torch.roll(slab, sh, dims=axis))
     C = nz * nyl * nxl
     F1 = nz * Av + 4 * Ah
     m5 = minis.reshape(nz, nyl, nxl, ch, F1)
     col = torch.sum(m5[..., :nz * Av], dim=0).reshape(nyl, nxl, ch, nz, Av)
     arr_v = col.movedim(3, 0)                        # [kd, ny, nx, ch, Av]
     mh = m5[..., nz * Av:].reshape(nz, nyl, nxl, ch, 4, Ah)
-    arr_w = torch.roll(mh[..., 0, :], -1, dims=2)
-    arr_e = torch.roll(mh[..., 1, :], 1, dims=2)
-    arr_s = torch.roll(mh[..., 2, :], -1, dims=1)
-    arr_n = torch.roll(mh[..., 3, :], 1, dims=1)
+    arr_w = roll(mh[..., 0, :], -1, 2)
+    arr_e = roll(mh[..., 1, :], 1, 2)
+    arr_s = roll(mh[..., 2, :], -1, 1)
+    arr_n = roll(mh[..., 3, :], 1, 1)
     arr = torch.cat([arr_v, arr_w, arr_e, arr_s, arr_n], dim=-1)
     return arr.reshape(C, ch, Av + 4 * Ah)
 
 
 def rebucket(aero: AeroState, dest_k, dj, di, horizontal, drop, acc, cfg: Config,
-             key):
+             key, roll=None):
     """Move particles to their sampled destination cells; ``drop`` marks
-    particles leaving an open domain, which vanish.  Returns (new_aero,
-    diag) with the overflow counters.
+    particles leaving an open domain, which vanish.  ``roll``: the
+    horizontal shift of ``_reorder_minis`` (a block's edge exchange).
+    Returns (new_aero, diag) with the overflow counters.
 
     * ranks: every mover's within-cell rank among movers of its destination
       class (0..nz-1 a vertical target level, nz+d a horizontal face
@@ -320,7 +353,7 @@ def rebucket(aero: AeroState, dest_k, dj, di, horizontal, drop, acc, cfg: Config
     payload = torch.stack(parts, dim=1)             # [C, CH, P]
     CH = payload.shape[1]
     minis = scatter_rows(payload, dst1, F1)
-    arr = _reorder_minis(minis, nz, nyl, nxl, CH, Av, Ah).contiguous()
+    arr = _reorder_minis(minis, nz, nyl, nxl, CH, Av, Ah, roll).contiguous()
     del minis
 
     # phase 1b: destination-side preweight thinning, then arrival/free ranks
@@ -364,12 +397,70 @@ def rebucket(aero: AeroState, dest_k, dj, di, horizontal, drop, acc, cfg: Config
     return new, diag
 
 
+def edge_roll(mesh: Mesh):
+    """The roll hook of a block's rebucket: shift the mover mini-buffers one
+    column (``axis`` 2, x) or row (1, y) over and patch the wrapped column
+    with the neighbouring rank's edge buffer, as the JAX package's
+    periodic ``ppermute`` does (an edge rank of an open domain receives
+    the far edge's buffer, empty because its movers were dropped)."""
+    def roll(slab, sh, axis):
+        rolled = torch.roll(slab, sh, dims=axis)
+        name = "x" if axis == 2 else "y"
+        if mesh.extent(name) == 1:
+            return rolled
+        n = slab.shape[axis]
+        # shift -1: the wrapped entry is the last and comes from the +1
+        # rank's first; shift +1: the first, from the -1 rank's last
+        send_at, put_at = (0, n - 1) if sh == -1 else (n - 1, 0)
+        edge = halo.neighbor_shift(slab.narrow(axis, send_at, 1), sh, mesh, name)
+        rolled.narrow(axis, put_at, 1).copy_(edge)
+        return rolled
+    return roll
+
+
+def transport_step_sharded(aero: AeroState, probs: OutflowProbs, xkhh, exch_h,
+                           grid: Grid, cfg: Config, dt, key, mesh: Mesh, rho3, dz3):
+    """Transport of this rank's block of the particles (the JAX package's
+    ``transport_step_sharded``).  The probability fields come from the
+    replicated Eulerian fields: the face probabilities are built on the
+    whole domain and sliced to the block, the column-local vertical
+    operator is built on the block's columns.  Each rank draws its moves
+    with the key folded by its mesh row, then column, rebuckets its block
+    and sends the movers of its edge columns to the neighbouring rank
+    (:func:`edge_roll`); the diagnostics are summed over the ranks."""
+    blk = lambda f: _block_cf(f, mesh, grid)
+    p_hdiff = horizontal_diffusion_probs(xkhh, grid, dt, rho3, cfg)
+    ph = tuple(blk(p) for p in normalized_face_probs(probs, p_hdiff))
+    R = vertical_operator(tree_map(blk, probs), blk(exch_h), grid, dt, blk(rho3), blk(dz3))
+    acc = preweight_acceptance(aero, ph, R, cfg, mesh)
+    k = rng.fold_in(rng.fold_in(key, mesh.iy), mesh.ix)
+    k_mv, k_thin = rng.split(k)
+    dj, di, dest_k, horizontal = sample_moves(aero, ph, R, k_mv)
+    ys, xs = mesh.slices(grid.ny, grid.nx)
+    drop = open_boundary_drop(dj, di, horizontal, cfg, grid, ix0=xs.start, iy0=ys.start)
+    new, diag = rebucket(aero, dest_k, dj, di, horizontal, drop, acc, cfg, k_thin,
+                         roll=edge_roll(mesh))
+    names = list(diag)
+    total = halo.all_reduce_sum(torch.stack([diag[n] for n in names]), mesh)
+    return new, dict(zip(names, total.unbind(0)))
+
+
+def _block_cf(f, mesh: Mesh, grid: Grid):
+    """This rank's block of a field whose last three axes are (nz, ny, nx)."""
+    ys, xs = mesh.slices(grid.ny, grid.nx)
+    return f[..., ys, xs]
+
+
 def transport_step(aero: AeroState, probs: OutflowProbs, xkhh, exch_h,
-                   grid: Grid, cfg: Config, dt, key, rho3, dz3):
-    """Full stochastic transport step on one device: probabilities -> move
-    draw -> rebucket with destination-side preweight thinning.  Particles
-    sampled across an open lateral boundary are removed.  Returns
+                   grid: Grid, cfg: Config, dt, key, rho3, dz3, mesh: Mesh | None = None):
+    """Full stochastic transport step: probabilities -> move draw ->
+    rebucket with destination-side preweight thinning.  Particles sampled
+    across an open lateral boundary are removed.  With ``mesh``, ``aero``
+    is this rank's block (:func:`transport_step_sharded`).  Returns
     (new_aero, diag)."""
+    if mesh is not None:
+        return transport_step_sharded(aero, probs, xkhh, exch_h, grid, cfg, dt, key,
+                                      mesh, rho3, dz3)
     k_mv, k_thin = rng.split(key)
     p_hdiff = horizontal_diffusion_probs(xkhh, grid, dt, rho3, cfg)
     ph = normalized_face_probs(probs, p_hdiff)

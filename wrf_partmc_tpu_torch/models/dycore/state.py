@@ -69,5 +69,13 @@ def temperature(state: DycoreState, grid: Grid):
     return th * (p / c.P0) ** c.KAPPA
 
 
+def layer_depths(state: DycoreState, grid: Grid, shape):
+    """[nz, ny, nx] layer depths [m] of ``shape``: from the geopotential on
+    the mass-coordinate core, the base-state depths on the linear core."""
+    if state.ph is not None:
+        return (grid.phb[1:] - grid.phb[:-1] + state.ph[1:] - state.ph[:-1]) / c.GRAV
+    return grid.dz.reshape(-1, 1, 1).expand(shape)
+
+
 def replace(state: DycoreState, **kw) -> DycoreState:
     return dataclasses.replace(state, **kw)

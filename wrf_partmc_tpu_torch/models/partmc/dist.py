@@ -93,9 +93,11 @@ def dist_num_density(dist: AeroDist, diam) -> torch.Tensor:
 
 
 def sample_particles(key, dist: AeroDist, aero_data: AeroData, n_sample: int,
-                     volume, cell_shape=()):
+                     volume, cell_shape=(), block=None):
     """Draw ``n_sample`` computational particles per cell representing the
-    whole dist in physical volume ``volume`` [m3].
+    whole dist in physical volume ``volume`` [m3].  With ``block``
+    (``rng.Block``), ``cell_shape`` is a rank's block of the global cells
+    and the draws are the block's slice of the global draws.
 
     Returns (vol [*cell, S, E], num [*cell, E], source [*cell, E],
     w_class [*cell, E])."""
@@ -105,11 +107,12 @@ def sample_particles(key, dist: AeroDist, aero_data: AeroData, n_sample: int,
     S = aero_data.n_spec
     k_mode, k_diam = rng.split(key)
     logits = torch.log(torch.clamp(dist.num_conc, min=0.0))  # 1e-300 is 0 in f32
-    m_idx = rng.categorical(k_mode, logits[..., None, :].expand(*cs, E, M), axis=-1)
+    m_idx = rng.categorical(k_mode, logits[..., None, :].expand(*cs, E, M), axis=-1,
+                            block=block)
     take = lambda a: torch.gather(a.expand(*cs, M), -1, m_idx)
     gmd = take(dist.geom_mean_diam)
     sig = take(dist.log_geom_std)
-    z = rng.normal(k_diam, (*cs, E), dist.num_conc.device)
+    z = rng.normal(k_diam, (*cs, E), dist.num_conc.device, block)
     diam = gmd * torch.exp(sig * z)
     pvol = diam_to_vol(diam)
     vf = dist.vol_frac.expand(*cs, M, S)

@@ -89,16 +89,19 @@ def update_gas_state(scn: Scenario, gas, t, dt):
 
 
 def update_aero_state(scn: Scenario, state: AeroState, aero_data: AeroData,
-                      t, dt, key, n_emit_slots: int, cell_volume) -> AeroState:
+                      t, dt, key, n_emit_slots: int, cell_volume,
+                      block=None) -> AeroState:
     """Aerosol emission + dilution over dt: (1) per-particle survival of the
-    dilution, (2) background in-mixing sample, (3) emission sample."""
+    dilution, (2) background in-mixing sample, (3) emission sample.  With
+    ``block`` (``rng.Block``), ``state`` is a rank's block and every draw
+    the block's slice of the global draw."""
     cell_shape = state.cell_shape
     k_dil, k_back, k_emit = rng.split(key, 3)
     i = _time_index(scn.emit_times, t)
     lam = _dilution(scn, i)
     p_out = 1.0 - torch.exp(-lam * dt)
 
-    u = rng.uniform(k_dil, state.num.shape, state.num.device)
+    u = rng.uniform(k_dil, state.num.shape, state.num.device, block=block)
     keep = (u >= p_out) & state.alive
     state = dataclasses.replace(
         state, num=torch.where(keep, state.num, 0.0),
@@ -106,7 +109,7 @@ def update_aero_state(scn: Scenario, state: AeroState, aero_data: AeroData,
 
     def inject(state, dist, added_number, key):
         vol, num, src, wcl = sample_particles(key, dist, aero_data,
-                                              n_emit_slots, 1.0, cell_shape)
+                                              n_emit_slots, 1.0, cell_shape, block)
         tot = dist_number_conc(dist)
         # the reference's max(tot, 1e-300) is max(tot, 0) in f32: an empty
         # dist gives 0/0 = NaN multiplicities, which add_particles turns

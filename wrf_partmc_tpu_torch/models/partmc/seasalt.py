@@ -47,20 +47,21 @@ def seasalt_number_fluxes(u10, n_bins: int = 8, r_min=0.05, r_max=5.0,
 def sample_seasalt(key, aero_data: AeroData, u10, area, dt, n_slots: int,
                    cell_shape=(), param: int = 1, source: int = 0,
                    w_class: int = 0, w_class_spume: int | None = None,
-                   r80_split_um: float = 10.0):
+                   r80_split_um: float = 10.0, block=None):
     """Fixed-slot sea-salt sample: ``n_slots`` entries per cell, pure Na+Cl
     (0.4/0.6 by volume) at dry diameter r80, each carrying an equal share of
     the cell's integrated number flux times ``area`` and ``dt``.  With
     ``w_class_spume`` entries with r80 >= ``r80_split_um`` take that class.
     Returns (vol [..., S, E], num [..., E], source, w_class) for
-    ``add_particles``."""
+    ``add_particles``.  ``block``: a rank's block of a global draw
+    (``rng.Block``)."""
     centers_um, flux = seasalt_number_fluxes(u10, param=param)   # [..., B]
     B = centers_um.shape[0]
     E = n_slots
     total = torch.sum(flux, dim=-1) * area * dt                   # [...] number
     logits = torch.log(torch.clamp(flux, min=1e-30))
     logits = logits[..., None, :].expand(*cell_shape, E, B)
-    b_idx = rng.categorical(key, logits, axis=-1)                 # [..., E]
+    b_idx = rng.categorical(key, logits, axis=-1, block=block)   # [..., E]
     r80_um = centers_um[b_idx]
     d_dry = (r80_um / 2.0) * 2.0 * 1e-6                           # [m]
     pvol = diam_to_vol(d_dry)

@@ -17,7 +17,7 @@ import torch
 
 from ... import constants as c
 from ...grid import Grid
-from ..dycore.state import DycoreState, temperature, total_pressure
+from ..dycore.state import DycoreState, layer_depths, temperature, total_pressure
 from .thermo import saturation_mixing_ratio
 
 LV = c.WATER_LATENT_HEAT
@@ -57,7 +57,7 @@ def bmj_step(state: DycoreState, grid: Grid, dt):
     temp = temperature(state, grid)
     pres = total_pressure(state, grid)
     qv = state.moist[0]
-    dz = (grid.phb[1:] - grid.phb[:-1] + state.ph[1:] - state.ph[:-1]) / c.GRAV
+    dz = layer_depths(state, grid, temp.shape)
     rho = pres / (c.R_D * temp)
     dm = rho * dz                                        # layer mass [kg/m2]
 

@@ -19,7 +19,7 @@ import torch
 
 from ... import constants as c
 from ...grid import Grid
-from ..dycore.state import DycoreState, temperature, total_pressure
+from ..dycore.state import DycoreState, layer_depths, temperature, total_pressure
 from .microphysics import _sediment, sat_mixing_ratio_ice
 from .thermo import saturation_mixing_ratio as sat_mixing_ratio
 
@@ -264,7 +264,7 @@ def morrison_step(state: DycoreState, grid: Grid, dt) -> DycoreState:
     lam_i1, _ = _slope(qi1, ni1, rho, RHO_I, 1e3, 1e7)
     lam_s1, _ = _slope(qs1, ns1, rho, RHO_S, 1e2, 1e5)
     lam_g1, _ = _slope(qg1, ng1, rho, RHO_G, 1e2, 1e5)
-    dz = (grid.phb[1:] - grid.phb[:-1] + state.ph[1:] - state.ph[:-1]) / c.GRAV
+    dz = layer_depths(state, grid, qr1.shape)
 
     species = [(qr1, nr1, lam_r1, AR, BR, 9.0, "r"),
                (qi1, ni1, lam_i1, AI, BI, 9.0, "i"),

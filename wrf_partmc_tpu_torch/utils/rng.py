@@ -5,8 +5,8 @@ reproduces ``jax.random`` bit for bit (``jax_threefry_partitionable=True``,
 the default of jax 0.9), so every stochastic process of the port draws the
 same numbers as the JAX package from the same key.
 
-A key is a pair of Python ints ``(k0, k1)``, each a uint32 value.  Key
-arithmetic (``key``, ``fold_in``, ``split``) runs on the host in Python
+A key is a :class:`Key`, a pair of Python ints ``(k0, k1)``, each a
+uint32 value.  Key arithmetic (``key``, ``fold_in``, ``split``) runs on the host in Python
 integers and never touches the device; bulk draws (``random_bits`` and the
 samplers built on it) run on the device of the caller's choosing, with the
 uint32 words carried in int64 tensors and masked with ``& 0xFFFFFFFF``
@@ -14,11 +14,17 @@ after every add, so the same code runs on CPU and CUDA.
 
 Every stochastic site derives its key from (base_seed, step, substream-tag),
 exactly as ``wrf_partmc_tpu/utils/rng.py`` does.
+
+Element i of a draw hashes only its row-major index i, so a rank of the
+domain decomposition can draw just its horizontal block of a global-shape
+draw (a :class:`Block`): the block's elements hash their global indices,
+and the result equals the slice of the global draw bit for bit.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -34,7 +40,41 @@ STREAM_BC = 6
 _M = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
-Key = tuple
+
+
+class Key(tuple):
+    """A threefry key ``(k0, k1)``; its own type, so that the decomposed
+    step can find the keys among a call's arguments and fold them with the
+    rank's block index."""
+
+
+@dataclass(frozen=True)
+class Block:
+    """A rank's horizontal block of a global draw: rows ``iy0 .. iy0+ny_l``
+    of ``ny`` and columns ``ix0 .. ix0+nx_l`` of ``nx`` on axes 1 and 2 of a
+    draw shaped ``(n0, ny, nx, *trail)``, as the cell fields lay them out."""
+
+    ny: int
+    nx: int
+    iy0: int
+    ix0: int
+    ny_l: int
+    nx_l: int
+
+    def flat_index(self, shape, device) -> torch.Tensor:
+        """int64 global row-major indices of the block draw ``shape``
+        (``(n0, ny_l, nx_l, *trail)``) within the global draw."""
+        shape = tuple(shape)
+        if len(shape) < 3 or shape[1:3] != (self.ny_l, self.nx_l):
+            raise ValueError(f"block draw of shape {shape}: axes 1, 2 must be "
+                             f"({self.ny_l}, {self.nx_l})")
+        trail = math.prod(shape[3:])
+        ar = lambda a, n: torch.arange(a, a + n, dtype=torch.int64, device=device)
+        cell = ((ar(0, shape[0]).reshape(-1, 1, 1) * self.ny
+                 + ar(self.iy0, self.ny_l).reshape(1, -1, 1)) * self.nx
+                + ar(self.ix0, self.nx_l).reshape(1, 1, -1))
+        idx = cell.reshape(-1, 1) * trail + ar(0, trail).reshape(1, -1)
+        return idx.reshape(shape)
 
 
 def _rotl(x, r: int):
@@ -59,18 +99,18 @@ def threefry2x32(k0, k1, x0, x1):
 
 def key(seed: int) -> Key:
     """``jax.random.key(seed)`` for a 32-bit seed: the high word is zero."""
-    return (0, int(seed) & _M)
+    return Key((0, int(seed) & _M))
 
 
 def fold_in(k: Key, data: int) -> Key:
     """``jax.random.fold_in``: hash the counter pair (0, data) under k."""
-    return threefry2x32(k[0], k[1], 0, int(data) & _M)
+    return Key(threefry2x32(k[0], k[1], 0, int(data) & _M))
 
 
 def split(k: Key, num: int = 2) -> tuple:
     """``jax.random.split`` (fold-like partitionable form): key i hashes the
     counter pair (0, i)."""
-    return tuple(threefry2x32(k[0], k[1], 0, i) for i in range(num))
+    return tuple(Key(threefry2x32(k[0], k[1], 0, i)) for i in range(num))
 
 
 def base_key(seed: int) -> Key:
@@ -82,13 +122,16 @@ def step_key(k: Key, step: int, stream: int) -> Key:
     return fold_in(fold_in(k, stream), step)
 
 
-def random_bits(k: Key, shape, device) -> torch.Tensor:
+def random_bits(k: Key, shape, device, block: Block | None = None) -> torch.Tensor:
     """32 random bits per element (int64 tensor of uint32 values): the
     element with row-major index n hashes the counter pair (n >> 32,
-    n & 0xFFFFFFFF), and the two output words are xor-ed."""
+    n & 0xFFFFFFFF), and the two output words are xor-ed.  With ``block``,
+    ``shape`` is the block's and n its elements' global index."""
     shape = tuple(shape)
-    n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    if block is None:
+        idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    else:
+        idx = block.flat_index(shape, device).reshape(-1)
     y0, y1 = threefry2x32(k[0], k[1], idx >> 32, idx & _M)
     return (y0 ^ y1).reshape(shape)
 
@@ -101,11 +144,11 @@ def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
 
 
 def uniform(k: Key, shape, device, minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform`` in float32."""
+            maxval: float = 1.0, block: Block | None = None) -> torch.Tensor:
+    """``jax.random.uniform`` in float32 (``block``: see :func:`random_bits`)."""
     lo = np.float32(minval)
     span = float(np.float32(np.float32(maxval) - lo))
-    f = _bits_to_unit(random_bits(k, shape, device))
+    f = _bits_to_unit(random_bits(k, shape, device, block))
     return torch.clamp(f * span + float(lo), min=float(lo))
 
 
@@ -203,40 +246,51 @@ def erfinv_xla(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.abs(x) == 1.0, x * float("inf"), p * x)
 
 
-def normal(k: Key, shape, device) -> torch.Tensor:
+def normal(k: Key, shape, device, block: Block | None = None) -> torch.Tensor:
     """``jax.random.normal`` in float32: sqrt(2) erfinv(u), u uniform on
     (nextafter(-1, 0), 1), with XLA-CPU's erfinv (:func:`erfinv_xla`), so the
     draws equal the JAX package's bit for bit on the CPU."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = uniform(k, shape, device, lo, 1.0)
+    u = uniform(k, shape, device, lo, 1.0, block)
     return float(np.float32(np.sqrt(2.0))) * erfinv_xla(u)
 
 
-def gumbel(k: Key, shape, device) -> torch.Tensor:
+def gumbel(k: Key, shape, device, block: Block | None = None) -> torch.Tensor:
     """``jax.random.gumbel`` (mode "low") in float32."""
     tiny = float(np.finfo(np.float32).tiny)
-    u = uniform(k, shape, device, tiny, 1.0)
+    u = uniform(k, shape, device, tiny, 1.0, block)
     return -torch.log(-torch.log(u))
 
 
-def categorical(k: Key, logits: torch.Tensor, axis: int = -1) -> torch.Tensor:
+def categorical(k: Key, logits: torch.Tensor, axis: int = -1,
+                block: Block | None = None) -> torch.Tensor:
     """``jax.random.categorical`` with replacement (gumbel-max trick).
     Returns int64 indices of shape ``logits.shape`` without ``axis``."""
-    g = gumbel(k, logits.shape, logits.device)
+    g = gumbel(k, logits.shape, logits.device, block)
     return torch.argmax(g + logits, dim=axis)
 
 
-def randint_scalar(k: Key, minval: int, maxval: int) -> int:
-    """``jax.random.randint(k, (), minval, maxval)`` for an int32 result,
-    as a Python int computed on the host: two 32-bit draws reduced modulo
-    the span, exactly as jax does."""
-    def bits(kk):
-        y0, y1 = threefry2x32(kk[0], kk[1], 0, 0)
-        return y0 ^ y1
+def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
+    """(a * b) mod 2^32 for uint32 values in int64 without overflow."""
+    lo = a * (b & 0xFFFF)
+    hi = ((a * (b >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M
 
+
+def randint(k: Key, shape, device, minval: int, maxval: int,
+            block: Block | None = None) -> torch.Tensor:
+    """``jax.random.randint(k, shape, minval, maxval)`` for int32 results
+    (int64 tensor): two 32-bit draws reduced modulo the span, as jax does
+    (``block``: see :func:`random_bits`)."""
     k1, k2 = split(k)
     span = (maxval - minval) & _M if maxval > minval else 1
     mult = (2 ** 16) % span
-    mult = (mult * mult) % span
-    off = (((bits(k1) % span) * mult) & _M) + (bits(k2) % span)
-    return minval + (off & _M) % span
+    mult = ((mult * mult) & _M) % span        # the uint32 product wraps, as in jax
+    hi = random_bits(k1, shape, device, block) % span
+    lo = random_bits(k2, shape, device, block) % span
+    return minval + ((_mul32(hi, mult) + lo) & _M) % span
+
+
+def randint_scalar(k: Key, minval: int, maxval: int) -> int:
+    """``jax.random.randint(k, (), minval, maxval)`` as a Python int."""
+    return int(randint(k, (), "cpu", minval, maxval))
