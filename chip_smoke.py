@@ -106,18 +106,30 @@ Phases, each printed on its own line and each fatal on failure:
     acoustic's 1 + 2 + 4 substep solves and vertical diffusion);
 27. card against CPU, the decomposed step: a world of one rank over NCCL
     on ``cuda:0`` against a world of one over gloo on ``cpu`` (the 1x1
-    mesh: keys folded with the block index, the all-gathers), one step
-    of ``entry.build(mesh=...)`` at 12x12x4 each, compared as phase 4;
-    with more cards visible (up to 4), the same over ``factor_2d(n)``
-    ranks (``parallel.launch``), each rank's block compared;
+    mesh: keys folded with the block index, the halos local copies), one
+    step of ``entry.build(mesh=...)`` at 12x12x4 each, compared as phase
+    4; with more cards visible (up to 4), the same over ``factor_2d(n)``
+    ranks (``parallel.launch``), each rank's block compared.  Each card
+    rank's block of every dycore field is then held against the same
+    block of the undecomposed step on the card (bit-equal, or within
+    1e-4 of the field's scale, printed), and no step gathers a field;
 28. the decomposed main path: 40x40x10 at 1000 per cell on the
     ``factor_2d(n)`` mesh of n ranks, n the visible cards up to 4 (one
-    rank in this process, more through ``parallel.launch``): a warm-up and
-    six timed steps, the ms/step against phase 5's, peak memory, the
-    collectives a step by kind with their bytes, each kernel's launches a
-    step, K2 and K3 held and timed again at the rank-local rebucket's
-    block shapes, then ``entry.dryrun_multichip(n)`` on the same world.
-    The process groups start on a file rendezvous under ``build/``.
+    rank in this process, more through ``parallel.launch``): every rank
+    holds and advances only its block of the Eulerian state and of the
+    particles.  A warm-up and six timed steps, the ms/step against phase
+    5's, peak memory, the collectives a step by kind with their bytes
+    (the halo exchanges, their P2P sends; no all-gather), each kernel's
+    launches a step and K1's by caller (the block's ARW acoustic and
+    vertical diffusion), then a two-step synced split on every rank with
+    the halo exchanges and the transport's P2P sends timed inside the
+    sections, K1 held at the block shapes (with more than one rank also
+    at the blocks of the CARES shape's 72x72x24) and K2 and K3 held and
+    timed again at the rank-local rebucket's block shapes, then
+    ``entry.dryrun_multichip(n)`` on the same world.  With more than one
+    rank, the same at weak scaling: the (40 py)x(40 px)x10 domain, each
+    rank's block the one-card main path's.  The process groups start on
+    a file rendezvous under ``build/``.
 
 Paths 5, 11, 17, 18, 21 and 22 also print their kernel launches by caller
 (17, 18, 21 and 22 with K3 inside the particle rebalance and its
@@ -142,7 +154,9 @@ checkout of the repository, the script exits non-zero and prints no result.
 
 runs only phases 1, 2, 5, 27 and 28, with their kernel holds: the
 decomposition on every visible card (up to 4) against the undecomposed
-main path, for a machine of several cards.
+main path, for a machine of several cards (the strong- and weak-scaling
+ms/step beside phase 5's, the per-rank split, the P2P calls and bytes a
+step and the peak memory a card).
 """
 
 from __future__ import annotations
@@ -1705,10 +1719,11 @@ def split_sites():
             (d, "rebalance", "rebalance"))
 
 
-def synced_split(model, state, steps: int, name: str):
+def synced_split(model, state, steps: int, name: str, extra=()):
     """``steps`` steps with ``torch.cuda.synchronize()`` around every section
-    of ``split_sites``: the ms a step of each, the synced step, and what the
-    sections saw (the BMJ rain, the sea-salt number added per level)."""
+    of ``split_sites`` (and the ``extra`` sites): the ms a step of each, the
+    synced step, and what the sections saw (the BMJ rain, the sea-salt
+    number added per level).  Returns (state, calls, seen, ms by label)."""
     import torch
 
     acc, calls, seen = {}, {}, {"rain": [], "seasalt": []}
@@ -1727,7 +1742,7 @@ def synced_split(model, state, steps: int, name: str):
             seen["seasalt"].append(num.sum(dim=(1, 2, 3)).detach().clone())
         return out
 
-    restore = patch_sites(split_sites(), hook)
+    restore = patch_sites(split_sites() + tuple(extra), hook)
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1743,7 +1758,8 @@ def synced_split(model, state, steps: int, name: str):
           + ", ".join(f"{k} {v:.3f}" for k, v in sorted(ms.items(), key=lambda kv: -kv[1]))
           + f"; the rest {1e3 * total / steps - top:.3f} (ms/step; calls "
           + json.dumps(calls) + ")")
-    return state, calls, seen
+    ms["synced step"] = 1e3 * total / steps
+    return state, calls, seen, ms
 
 
 def phase_options_path(kernels: dict, name: str, n_timed: int = 6, n_split: int = 2):
@@ -1779,7 +1795,7 @@ def phase_options_path(kernels: dict, name: str, n_timed: int = 6, n_split: int 
     require_launched(kernels, f"launches_{name}", launches, f"{name} options path",
                      n_timed + 1)
     print(f"[{name}] kernel launches by caller: {json.dumps(by_caller)}")
-    state, calls, seen = synced_split(model, state, n_split, name)
+    state, calls, seen, _ = synced_split(model, state, n_split, name)
     dyn = state.dyn
     for f in DYN_FIELDS:
         require(bool(torch.isfinite(getattr(dyn, f)).all()), f"{name} path: dyn.{f} not finite")
@@ -2485,8 +2501,9 @@ def stop_world(path: str | None):
 
 def rank_step(path: str, nx: int = 12, ny: int = 12, nz: int = 4):
     """One rank of a started world: one decomposed step of
-    ``entry.build(mesh=...)`` at nx x ny x nz (16 per cell), its state and
-    collective counts saved to ``path.<rank>`` on the CPU."""
+    ``entry.build(mesh=...)`` at nx x ny x nz (16 per cell), its state,
+    its block's place and collective counts saved to ``path.<rank>`` on
+    the CPU."""
     import torch
 
     from wrf_partmc_tpu_torch.entry import build
@@ -2496,7 +2513,9 @@ def rank_step(path: str, nx: int = 12, ny: int = 12, nz: int = 4):
     model, state = build(nx, ny, nz, n_part=16, cap=48, device=mesh.device, mesh=mesh)
     halo.reset_counts()
     out = model(state).to("cpu")
-    torch.save({"state": out, "counts": halo.read_counts()}, f"{path}.{mesh.rank}")
+    ys, xs = mesh.slices(ny, nx)
+    torch.save({"state": out, "counts": halo.read_counts(), "ys": ys, "xs": xs},
+               f"{path}.{mesh.rank}")
 
 
 def spawn_ranks(n: int, device: str, call: str, timeout_s: float = 600.0) -> list:
@@ -2514,15 +2533,50 @@ def spawn_ranks(n: int, device: str, call: str, timeout_s: float = 600.0) -> lis
     return [out for _, out in results]
 
 
+BLOCK_TOL = 1e-4      # share of a field's scale a decomposed block may differ by
+
+
+def hold_blocks(tag: str, whole, rank_out) -> str:
+    """Hold a rank's block of every dycore field against the same block of
+    the undecomposed step (both on the card): bit-equal, or within
+    ``BLOCK_TOL`` of the field's scale (ATen may sum the levels of a
+    block's columns in another order than the whole domain's).  Returns
+    the fields that differ with their largest difference."""
+    import torch
+
+    diffs = {}
+    for name in DYN_FIELDS:
+        w = getattr(whole.dyn, name)
+        b = getattr(rank_out["state"].dyn, name)
+        if w is None:
+            require(b is None, f"{tag}: dyn.{name} only on the block")
+            continue
+        w = w[..., rank_out["ys"], rank_out["xs"]]
+        require(b.shape == w.shape, f"{tag}: dyn.{name} block {tuple(b.shape)} vs "
+                f"{tuple(w.shape)}")
+        if not torch.equal(b, w):
+            d = float((b - w).abs().max())
+            require(d <= BLOCK_TOL * float(w.abs().max()),
+                    f"{tag}: dyn.{name} block differs by {d}")
+            diffs[name] = d
+    return ("bit-equal" if not diffs else "within 1e-4 of the scale: " + " ".join(
+        f"{k}={v:.2e}" for k, v in diffs.items()))
+
+
 def phase_card_vs_cpu_decomposed():
     """A world of one over NCCL on the card, then one over gloo on the
     CPU: one decomposed step at 12x12x4 each.  With more cards visible
-    (up to 4), the same over ``factor_2d(n)`` ranks, block by block."""
+    (up to 4), the same over ``factor_2d(n)`` ranks, block by block.  Each
+    card rank's dycore block against the undecomposed step on the card."""
     import torch
 
+    from wrf_partmc_tpu_torch.entry import build
     from wrf_partmc_tpu_torch.parallel.mesh import factor_2d
 
     os.makedirs(RDV_DIR, exist_ok=True)
+    model, state = build(12, 12, 4, n_part=16, cap=48, device="cuda")
+    whole = model(state).to("cpu")
+    del model, state
     ns = sorted({1, min(4, torch.cuda.device_count())})
     for n in ns:
         outs = {}
@@ -2542,7 +2596,8 @@ def phase_card_vs_cpu_decomposed():
         py, px = factor_2d(n)
         for r in range(n):
             a, b = outs["cuda"][r], outs["cpu"][r]
-            require(a["counts"] == b["counts"] and a["counts"]["all_gather"]["calls"] == 1,
+            require(a["counts"] == b["counts"] and a["counts"]["all_gather"]["calls"] == 0
+                    and (n == 1 or a["counts"]["p2p"]["calls"] > 0),
                     f"decomposed card vs CPU, rank {r}: collectives {a['counts']} vs "
                     f"{b['counts']}")
             print(f"[decomposed-card-vs-cpu] 12x12x4, 16/cell, {n} rank(s), mesh {py}x{px}, "
@@ -2550,13 +2605,27 @@ def phase_card_vs_cpu_decomposed():
                   + compare_card_cpu(f"decomposed card vs CPU, rank {r} of {n}",
                                      a["state"], b["state"])
                   + f"; collectives {json.dumps(a['counts'])}")
+            print(f"[decomposed-blocks] 12x12x4, {n} rank(s), rank {r}'s dycore block "
+                  f"(NCCL, card) against the undecomposed step on the card: "
+                  + hold_blocks(f"decomposed block, rank {r} of {n}", whole, a))
 
 
-def decomposed_run(n_timed: int = 6, report: bool = False) -> dict:
+def _block_sites():
+    from wrf_partmc_tpu_torch.models.dycore import arw
+    from wrf_partmc_tpu_torch.ops import vdiff
+
+    return [(arw, "tridiag_solve", "K1 in the block ARW acoustic", "thomas_solve"),
+            (vdiff, "solve_fields", "K1 in block vertical diffusion", "thomas_solve")]
+
+
+def decomposed_run(nx: int = 40, ny: int = 40, n_timed: int = 6, n_split: int = 2,
+                   report: bool = False) -> dict:
     """This rank's share of phase 28 in a world of n ranks: the decomposed
-    em_uniform path at 40x40x10, 1000 per cell, a warm-up and ``n_timed``
-    timed steps, then ``entry.dryrun_multichip(n)``.  Returns its report
-    (shapes as lists); with ``report``, rank 0 also prints it as JSON."""
+    em_uniform path at nx x ny x 10, 1000 per cell, a warm-up and
+    ``n_timed`` timed steps, a synced split of ``n_split`` steps (the halo
+    exchanges and the transport's P2P timed inside the sections), then
+    ``entry.dryrun_multichip(n)``.  Returns its report (shapes as lists);
+    with ``report``, every rank also prints it as JSON."""
     import torch
     import torch.distributed as dist
 
@@ -2567,13 +2636,13 @@ def decomposed_run(n_timed: int = 6, report: bool = False) -> dict:
     mesh = pdist.global_mesh()
     torch.cuda.set_device(mesh.device)
     t0 = time.perf_counter()
-    model, state = build(40, 40, 10, n_part=1000, cap=1280, device=mesh.device, mesh=mesh)
+    model, state = build(nx, ny, 10, n_part=1000, cap=1280, device=mesh.device, mesh=mesh)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     by_caller = {}
-    restore = count_callers(by_caller, _rebucket_sites("rank-local"))
+    restore = count_callers(by_caller, _rebucket_sites("rank-local") + _block_sites())
     state = model(state)
     torch.cuda.synchronize()
     halo.reset_counts()
@@ -2590,15 +2659,20 @@ def decomposed_run(n_timed: int = 6, report: bool = False) -> dict:
     alive = int(halo.all_reduce_sum(state.aero.n_alive().sum().to(torch.float32), mesh))
     finite = bool(torch.isfinite(state.aero.num).all() and torch.isfinite(state.dyn.theta_p).all())
     diag = {k: float(v) for k, v in model.last_diag.items()}
+    dist.barrier()
+    state, _, _, split = synced_split(model, state, n_split, f"decomposed rank {mesh.rank}",
+                                      extra=((halo, "pad_axis", "*/halo exchanges"),
+                                             (halo, "_p2p", "*/P2P")))
     dry = dryrun_multichip(n, device="cuda")
-    rep = dict(n=n, mesh=list(mesh.shape), rank=mesh.rank, build_s=build_s,
-                ms=1e3 * dt / n_timed, steps=n_timed + 1, peak_gib=peak, alive=alive,
-                finite=finite, diag=diag, by_caller=by_caller, launches=launches,
-                shapes={k: [list(map(_listify, sh)) for sh in v] for k, v in shapes.items()},
-                collectives={k: {f: v / n_timed for f, v in rec.items() if f != "max_bytes"}
-                             | {"max_bytes": rec["max_bytes"]} for k, rec in counts.items()},
-                block=list(state.aero.num.shape), dryrun=dry["collectives"])
-    if report and mesh.rank == 0:
+    rep = dict(n=n, mesh=list(mesh.shape), rank=mesh.rank, nx=nx, ny=ny, build_s=build_s,
+               ms=1e3 * dt / n_timed, steps=n_timed + 1, peak_gib=peak, alive=alive,
+               finite=finite, diag=diag, by_caller=by_caller, launches=launches,
+               shapes={k: [list(map(_listify, sh)) for sh in v] for k, v in shapes.items()},
+               collectives={k: {f: v / n_timed for f, v in rec.items() if f != "max_bytes"}
+                            | {"max_bytes": rec["max_bytes"]} for k, rec in counts.items()},
+               block=list(state.aero.num.shape), dyn_block=list(state.dyn.theta_p.shape),
+               split=split, dryrun=dry["collectives"])
+    if report:
         print("REPORT " + json.dumps(rep), flush=True)
     return rep
 
@@ -2611,51 +2685,101 @@ def _tuplify(x):
     return tuple(_tuplify(v) for v in x) if isinstance(x, list) else x
 
 
-def phase_decomposed_path(kernels: dict):
-    import torch
-
-    n = min(4, torch.cuda.device_count())
+def run_decomposed_world(n: int, nx: int, ny: int) -> list:
+    """Every rank's report of ``decomposed_run`` at nx x ny on n cards."""
     if n == 1:
         path = start_world("cuda")
         try:
-            rep = decomposed_run()
+            return [decomposed_run(nx, ny)]
         finally:
             stop_world(path)
-    else:
-        out = spawn_ranks(n, "cuda", "decomposed_run(report=True)")[0]
-        rep = json.loads(next(line[7:] for line in out.splitlines()
-                              if line.startswith("REPORT ")))
-    shapes = {k: {_tuplify(sh) for sh in v} for k, v in rep["shapes"].items()}
-    steps, main_ms = rep["steps"], PATH_MS.get("main path", float("nan"))
-    print(f"[decomposed] n {rep['n']} (mesh {rep['mesh'][0]}x{rep['mesh'][1]}; rank 0's block "
-          f"{rep['block']}): 40x40x10, 1000/cell, cap 1280: build {rep['build_s']:.3f} s; "
-          f"{rep['ms']:.3f} ms/step against phase 5's undecomposed {main_ms:.3f} "
-          f"({rep['ms'] / main_ms:.4f}x); max_memory_allocated {rep['peak_gib']:.3f} GiB; "
-          f"alive {rep['alive']}; transport diag {json.dumps(rep['diag'])}")
-    print(f"[decomposed] collectives a step (calls, bytes): {json.dumps(rep['collectives'])}")
-    print(f"[decomposed] launches a step "
-          + json.dumps({k: v / steps for k, v in rep["launches"].items()})
-          + f"; by caller in {steps} steps: {json.dumps(rep['by_caller'])}")
-    print(f"[decomposed] dryrun_multichip({rep['n']}) OK, collectives "
-          + json.dumps(rep["dryrun"]))
+    outs = spawn_ranks(n, "cuda", f"decomposed_run({nx}, {ny}, report=True)")
+    return [json.loads(next(line[7:] for line in out.splitlines()
+                            if line.startswith("REPORT "))) for out in outs]
+
+
+def phase_decomposed_path(kernels: dict):
+    import torch
+
+    from wrf_partmc_tpu_torch.parallel.mesh import factor_2d
+
+    n = min(4, torch.cuda.device_count())
+    py, px = factor_2d(n)
+    main_ms = PATH_MS.get("main path", float("nan"))
+    runs = [("strong", 40, 40)] + ([("weak", 40 * px, 40 * py)] if n > 1 else [])
+    shapes = {}
+    for kind, nx, ny in runs:
+        reps = run_decomposed_world(n, nx, ny)
+        rep = reps[0]
+        for k, v in rep["shapes"].items():
+            shapes.setdefault(k, set()).update(_tuplify(sh) for sh in v)
+        steps = rep["steps"]
+        slowest = max(r["ms"] for r in reps)
+        print(f"[decomposed] {kind} scaling, n {n} (mesh {py}x{px}; each rank's block "
+              f"{rep['block']}): {nx}x{ny}x10, 1000/cell, cap 1280: build "
+              f"{rep['build_s']:.3f} s; {rep['ms']:.3f} ms/step on rank 0 (slowest rank "
+              f"{slowest:.3f}) against phase 5's undecomposed 40x40x10 {main_ms:.3f} "
+              f"({rep['ms'] / main_ms:.4f}x); max_memory_allocated "
+              + " ".join(f"{r['peak_gib']:.3f}" for r in reps)
+              + f" GiB by rank; alive {rep['alive']}; transport diag {json.dumps(rep['diag'])}")
+        c = rep["collectives"]
+        print(f"[decomposed] {kind}: collectives a step: halo calls {c['halo']['calls']:g} "
+              f"({c['halo']['bytes']:.0f} halo bytes), P2P sends {c['p2p']['calls']:g} "
+              f"({c['p2p']['bytes']:.0f} bytes, largest {c['p2p']['max_bytes']}), all-gathers "
+              f"{c['all_gather']['calls']:g}, all-reduces {c['all_reduce']['calls']:g} "
+              f"({c['all_reduce']['bytes']:.0f} bytes)")
+        print(f"[decomposed] {kind}: launches a step "
+              + json.dumps({k: v / steps for k, v in rep["launches"].items()})
+              + f"; by caller in {steps} steps: {json.dumps(rep['by_caller'])}")
+        for r in reps:
+            sp = r["split"]
+            top = {k: v for k, v in sp.items() if "/" not in k and k != "synced step"}
+            print(f"[decomposed] {kind}: rank {r['rank']} synced split (ms/step): step "
+                  f"{sp['synced step']:.3f}; " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in sorted(top.items(), key=lambda kv: -kv[1]))
+                  + f"; inside them the halo exchanges {sp.get('*/halo exchanges', 0.0):.3f}"
+                  f" (their P2P and the transport's {sp.get('*/P2P', 0.0):.3f})")
+        print(f"[decomposed] {kind}: dryrun_multichip({rep['n']}) OK, collectives "
+              + json.dumps(rep["dryrun"]))
+        require(all(r["finite"] for r in reps), f"decomposed {kind} path: not finite")
+        require(rep["alive"] > 0, f"decomposed {kind} path: no particle alive")
+        require(all(r["collectives"]["all_gather"]["calls"] == 0 for r in reps),
+                f"decomposed {kind} path: a field was gathered")
+        require(n == 1 or c["p2p"]["calls"] > 0, f"decomposed {kind} path: no halo exchange")
+        require(rep["dyn_block"] == [10, ny // py, nx // px],
+                f"decomposed {kind} path: the dycore block is {rep['dyn_block']}")
+        if kind == "strong":
+            for name, rec in kernels.items():
+                rec["launches_decomposed"] = rep["launches"][name]
+                require(rec["launches_decomposed"] > 0,
+                        f"{name} was not launched on the decomposed path")
+            kernels["thomas_solve"]["launches_block_acoustic"] = \
+                rep["by_caller"]["K1 in the block ARW acoustic"]
+            kernels["thomas_solve"]["launches_block_vdiff"] = \
+                rep["by_caller"]["K1 in block vertical diffusion"]
+            kernels["scatter_rows"]["launches_rank_local_rebucket"] = \
+                rep["by_caller"]["K2 in the rank-local rebucket"]
+            kernels["gather_rows"]["launches_rank_local_rebucket"] = \
+                rep["by_caller"]["K3 in the rank-local rebucket"]
+        else:
+            kernels["thomas_solve"]["launches_decomposed_weak"] = rep["launches"]["thomas_solve"]
+        PATH_MS[f"decomposed {kind}"] = rep["ms"]
     # the rank-local rebucket's block shapes, held and timed here even
     # where an earlier path held them (on one card the block is the domain)
     gen = torch.Generator(device="cuda").manual_seed(2)
     for name in ("scatter_rows", "gather_rows"):
         for sh in sorted(shapes[name], key=repr):
             hold(kernels, gen, name, sh)
+    if n > 1:
+        # K1 at the blocks this mesh makes of the CARES shape's 72x72x24
+        # (acoustic and MYJ, Noah, vertical diffusion with 10 moist and 77
+        # gases), which tests/test_torch_kernels_cuda.py holds too
+        by, bx = 72 // py, 72 // px
+        for sh in (k1_shapes((23, by, bx), [(23, by, bx)]),
+                   k1_shapes((4, by, bx), [(4, by, bx)]), vdiff_shapes(24, by, bx, 10, 77)):
+            if sh not in CHECKED["thomas_solve"]:
+                hold(kernels, gen, "thomas_solve", sh)
     torch.cuda.empty_cache()
-    require(rep["finite"], "decomposed path: not finite")
-    require(rep["alive"] > 0, "decomposed path: no particle alive")
-    require(rep["collectives"]["all_gather"]["calls"] >= 1,
-            "decomposed path: no all-gather a step")
-    for name, rec in kernels.items():
-        rec["launches_decomposed"] = rep["launches"][name]
-        require(rec["launches_decomposed"] > 0, f"{name} was not launched on the decomposed path")
-    kernels["scatter_rows"]["launches_rank_local_rebucket"] = \
-        rep["by_caller"]["K2 in the rank-local rebucket"]
-    kernels["gather_rows"]["launches_rank_local_rebucket"] = \
-        rep["by_caller"]["K3 in the rank-local rebucket"]
     return shapes
 
 
@@ -2757,7 +2881,8 @@ def main(argv=None) -> int:
         "thomas_solve": dict(route="cuda", source="wrf_partmc_tpu_torch/csrc/tridiag.cu",
                              replaces="wrf_partmc_tpu/ops/pallas_tridiag.py:33",
                              callers=["ARW acoustic", "vertical diffusion", "MYJ", "Noah",
-                                      "linear acoustic"]),
+                                      "linear acoustic", "block ARW acoustic",
+                                      "block vertical diffusion"]),
         "scatter_rows": dict(route="cuda", source="wrf_partmc_tpu_torch/csrc/place.cu",
                              replaces="wrf_partmc_tpu/ops/place.py:107",
                              callers=["rebucket", "compact", "rank-local rebucket"]),

@@ -113,6 +113,31 @@ def test_solve_fields_bit_exact(cuda, n, kinds):
         assert x.is_contiguous() and torch.equal(x, ref)
 
 
+# the shapes the decomposed paths give K1 on a 2x2 mesh: the ARW acoustic
+# solve and vertical diffusion's six fields on the [*, 20, 20] blocks of the
+# main path's 40x40x10, MYJ, Noah and vertical diffusion (10 moist, 77
+# gases) on the [*, 36, 36] blocks of the CARES shape's 72x72x24
+BLOCK_SHAPES = [(9, (20, 20), ["1"]),
+                (10, (20, 20), ["1", "1", "1", "3", "32", "1"]),
+                (23, (36, 36), ["1"]),
+                (4, (36, 36), ["1"]),
+                (24, (36, 36), ["1", "1", "1", "10", "77", "1"])]
+
+
+@pytest.mark.parametrize("n,cols,kinds", BLOCK_SHAPES)
+def test_thomas_block_shapes_bit_exact(cuda, n, cols, kinds):
+    g = torch.Generator(device=cuda).manual_seed(n)
+    dl, d, du = _system(g, (n, *cols), cuda)
+    fields = [_field(g, k, n, cols, cuda) for k in kinds]
+    for f in fields:
+        _junk_then_empty(f.shape, cuda)
+    before = tridiag.thomas_solve.launches
+    xs = tridiag.solve_fields(dl, d, du, fields)
+    assert tridiag.thomas_solve.launches == before + 1
+    for x, ref in zip(xs, tridiag.solve_fields_scan(dl, d, du, fields)):
+        assert torch.equal(x, ref)
+
+
 def _unique_dst(g, B, L1, L2, drop, cuda):
     n = min(L1, L2)
     perm = torch.argsort(torch.rand((B, L2), generator=g, device=cuda), dim=1)[:, :n]
@@ -327,7 +352,10 @@ def test_linear_coupled_step_launches_k1(cuda):
 
 def test_world_of_one_nccl_step(cuda, tmp_path):
     """A decomposed step in a world of one over NCCL on the card against a
-    world of one over gloo on the CPU (the 1x1 mesh)."""
+    world of one over gloo on the CPU (the 1x1 mesh: each rank's block is
+    the domain, so the dycore blocks are compared whole), and the card's
+    decomposed dycore against its undecomposed step, bit for bit (the
+    halos of a 1x1 mesh are local copies)."""
     from wrf_partmc_tpu_torch.entry import build
     from wrf_partmc_tpu_torch.parallel import distributed as pdist
 
@@ -338,7 +366,13 @@ def test_world_of_one_nccl_step(cuda, tmp_path):
             mesh = pdist.global_mesh()
             assert mesh.device.type == dev and mesh.shape == (1, 1)
             model, state = build(12, 12, 4, n_part=16, cap=48, device=mesh.device, mesh=mesh)
+            assert model.grid.mesh == mesh and (model.grid.ny, model.grid.nx) == (12, 12)
             outs[dev] = model(state).to("cpu")
         finally:
             pdist.shutdown()
     _step_close(outs["cuda"], outs["cpu"])
+    model, state = build(12, 12, 4, n_part=16, cap=48, device=cuda)
+    plain = model(state).to("cpu")
+    for f in dataclasses.fields(plain.dyn):
+        a, b = getattr(outs["cuda"].dyn, f.name), getattr(plain.dyn, f.name)
+        assert (a is None and b is None) or torch.equal(a, b), f.name

@@ -9,7 +9,12 @@ each take their block of a numpy field made from a seed and run
 ``host_to_global``/``global_to_host`` and block draws of ``rng.uniform``/
 ``normal``/``randint``; the JAX package runs ``halo.exchange_2d`` and
 ``neighbor_shift`` under ``shard_map`` and the global ``jax.random``
-draws.  Every comparison is exact: the layer only moves data, and a block
+draws.  The ranks also run the block stencils of ``ops.stencil`` inside
+``decomposed``: ``shift`` by -3..3 and ``make_taps`` of widths 1-3 on the
+y and x axes, periodic and clamped, against the whole-domain ``shift``
+(``torch.roll``, or the clamped edge) sliced to the block; an extent-1
+axis (a (1, 1) mesh in this process, no process group) is the local
+copy.  Every comparison is exact: the layer only moves data, and a block
 draw hashes the same counters as the global draw.  Also: ``factor_2d``,
 the errors of ``make_mesh``/``Mesh``/``shard_field``, a ``cuda`` world on a
 host without a card, and the launcher's exit codes and time limit.
@@ -29,7 +34,8 @@ from jax.sharding import PartitionSpec as P
 from wrf_partmc_tpu.parallel import halo as jhalo
 from wrf_partmc_tpu.parallel.mesh import factor_2d as jax_factor_2d
 from wrf_partmc_tpu.parallel.mesh import make_mesh as jax_make_mesh
-from wrf_partmc_tpu_torch.parallel import distributed as pdist
+from wrf_partmc_tpu_torch.ops import stencil
+from wrf_partmc_tpu_torch.parallel import distributed as pdist, halo
 from wrf_partmc_tpu_torch.parallel.launch import free_port, spawn
 from wrf_partmc_tpu_torch.parallel.mesh import Mesh, factor_2d, make_mesh, shard_field
 from wrf_partmc_tpu_torch.utils import rng
@@ -48,6 +54,7 @@ sys.path.insert(0, {repo!r})
 torch.set_num_threads(1)
 from wrf_partmc_tpu_torch.parallel import distributed as pdist, halo
 from wrf_partmc_tpu_torch.parallel.mesh import shard_field
+from wrf_partmc_tpu_torch.ops import stencil
 from wrf_partmc_tpu_torch.utils import rng
 assert pdist.init_from_env("cpu", timeout_s={timeout})
 mesh = pdist.global_mesh()
@@ -65,6 +72,15 @@ out = dict(
     whole=pdist.gather_field(blk, mesh),
     host=pdist.global_to_host(blk),
     counts=halo.read_counts())
+halo.reset_counts()
+with stencil.decomposed(mesh, blk.shape[1:]):
+    out["stencil"] = {{(bc, ax, s): stencil.shift(blk, s, ax, bc)
+                      for bc in stencil.BCS for ax in (-2, -1) for s in range(-3, 4)}}
+    taps = {{(bc, ax, w): stencil.make_taps(blk, -w, w, ax, bc)
+            for bc in stencil.BCS for ax in (-2, -1) for w in (1, 2, 3)}}
+    out["taps"] = {{k: torch.stack([t(s) for s in range(-k[2], k[2] + 1)])
+                   for k, t in taps.items()}}
+out["stencil_counts"] = halo.read_counts()
 key, b = rng.key(5), mesh.draw_block(*{draw}[1:3])
 local = ({draw}[0], b.ny_l, b.nx_l, {draw}[3])
 out.update(uniform=rng.uniform(key, local, "cpu", block=b),
@@ -176,6 +192,85 @@ def test_collective_counters(ranks):
         assert c["p2p"]["calls"] == 8 + 3 + (1 if r < 2 else 0), c
         assert c["all_gather"] == {"calls": 1, "bytes": n_bytes, "max_bytes": n_bytes}
         assert c["all_reduce"]["calls"] == 0
+
+
+@pytest.mark.parametrize("bc", ["periodic", "clamp"])
+def test_block_stencils(ranks, bc):
+    """Block shifts and taps across rank edges equal the whole-domain
+    stencil's (``torch.roll``, or the clamped edge) on the block."""
+    x = torch.tensor(_field())
+    for r, out in enumerate(ranks):
+        iy, ix = divmod(r, 2)
+        cut = lambda a: a[..., iy * 4:(iy + 1) * 4, ix * 6:(ix + 1) * 6]
+        for ax in (-2, -1):
+            for s in range(-3, 4):
+                want = cut(torch.roll(x, -s, dims=ax)) if bc == "periodic" else \
+                    cut(stencil.shift(x, s, ax, bc))
+                assert torch.equal(out["stencil"][(bc, ax, s)], want), (r, ax, s)
+            for w in (1, 2, 3):
+                taps = stencil.make_taps(x, -w, w, ax, bc)
+                want = torch.stack([cut(taps(s)) for s in range(-w, w + 1)])
+                assert torch.equal(out["taps"][(bc, ax, w)], want), (r, ax, w)
+
+
+def test_block_stencil_counts(ranks):
+    """One halo exchange per shift that moves (6 a bc and axis) and per
+    tap buffer (3): 2 x 2 x 9 calls, each one batch of sends to the
+    neighbours (two for the two-sided taps), no gather."""
+    for out in ranks:
+        c = out["stencil_counts"]
+        assert c["halo"]["calls"] == 2 * 2 * (6 + 3), c
+        assert c["p2p"]["calls"] == 2 * 2 * (6 + 2 * 3), c
+        assert c["all_gather"]["calls"] == 0
+
+
+@pytest.mark.parametrize("bc", ["periodic", "clamp"])
+@pytest.mark.parametrize("w", [1, 2, 3])
+def test_block_stencils_extent_one(bc, w):
+    """On a (1, 1) mesh every halo is a local copy: the block is the domain,
+    and its shifts and taps equal the undecomposed ones (``torch.roll`` for
+    periodic), with no collective."""
+    x = torch.tensor(_field())
+    mesh = Mesh(shape=(1, 1), rank=0, device=torch.device("cpu"))
+    halo.reset_counts()
+    for ax in (-2, -1):
+        with stencil.decomposed(mesh, x.shape[1:]):
+            got = [stencil.shift(x, s, ax, bc) for s in (-w, w)]
+            taps = stencil.make_taps(x, -w, w, ax, bc)
+            got_taps = [taps(s) for s in range(-w, w + 1)]
+        want = [stencil.shift(x, s, ax, bc) for s in (-w, w)]
+        plain = stencil.make_taps(x, -w, w, ax, bc)
+        if bc == "periodic":
+            assert torch.equal(want[1], torch.roll(x, -w, dims=ax))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert all(torch.equal(t, plain(s)) for t, s in zip(got_taps, range(-w, w + 1)))
+    c = halo.read_counts()
+    assert c["halo"]["calls"] == 2 * 3 and c["p2p"]["calls"] == 0
+
+
+def test_block_stencil_errors():
+    """A halo wider than the block raises before any exchange, and so does
+    a horizontal access to a tensor that is not an Eulerian block; a block
+    grid narrower than the widest stencil halo is refused."""
+    from wrf_partmc_tpu_torch.entry import make_config
+    from wrf_partmc_tpu_torch.grid import block_grid, make_grid
+
+    mesh = Mesh(shape=(2, 2), rank=0, device=torch.device("cpu"))
+    blk = torch.zeros(3, 2, 4)
+    with stencil.decomposed(mesh, (2, 4)):
+        with pytest.raises(ValueError, match="wider than|> the block"):
+            stencil.shift(blk, 3, -2)
+        with pytest.raises(ValueError, match="not an Eulerian block"):
+            stencil.shift(torch.zeros(3, 4, 2, 5), 1, -2)
+        assert torch.equal(stencil.shift(blk, 1, -3), torch.roll(blk, -1, dims=0))
+        with pytest.raises(ValueError, match="unknown bc"):
+            stencil.shift(blk, 1, -1, "open")
+    with pytest.raises(ValueError, match="narrower than the 3-point"):
+        block_grid(make_grid(make_config(4, 8, 4, 4, 8)), mesh)
+    grid = block_grid(make_grid(make_config(12, 8, 4, 4, 8)), mesh)
+    assert (grid.ny, grid.nx, grid.global_shape, grid.offsets) == (4, 6, (8, 12), (0, 0))
+    with pytest.raises(ValueError, match="a block already"):
+        block_grid(grid, mesh)
 
 
 @pytest.mark.parametrize("kind", ["uniform", "normal", "randint"])

@@ -15,6 +15,22 @@ result.
   fields exact, floats rtol 1e-5, as tests/test_torch_open_bc.py), the
   counters summed over the ranks exactly.
 * ``entry.dryrun_multichip(4)`` on 4 gloo ranks.
+* The block dycore step (``solve_step`` on each rank's block of the state
+  and its block grid, every horizontal access a block stencil with halo
+  exchanges) at (2, 2) against the port's whole-domain ``solve_step``,
+  sliced to the block: the ARW core periodic (em_uniform), periodic with
+  WENO5/3, the prognostic TKE and the NBA stresses (the LES options), and
+  open with the CARES physics (Morrison, Smagorinsky, damping); the linear
+  core periodic and open.  Every dycore field and the step diagnostics
+  (the outflow probabilities, xkhh and the mass fluxes) bit-equal, except
+  on the CARES shape (8 levels, 6x5 blocks of 12x10): there the ARW
+  core's column sums over the levels (``torch.sum(..., dim=0)`` of the
+  mass divergence in ``_omega_from_fluxes`` and the acoustic substeps'
+  ``mu_t``) round differently, because ATen picks its reduction order by
+  the tensor's size, so the fields agree within 1e-4 of each field's
+  scale (the largest deviation, p_p's 2.4e-5, is the pressure's
+  cancellation; the same sums over the levels in sequence give bit-equal
+  blocks).
 
 The decomposed coupled step is in tests/test_torch_sharded_step.py, which
 uses this file's rank runner.
@@ -63,19 +79,31 @@ assert pdist.init_from_env("cpu", timeout_s={timeout})
 mesh = pdist.global_mesh()
 task = torch.load({path!r}, weights_only=False)
 torch.set_flush_denormal(task.get("flush_denormal", False))
+from wrf_partmc_tpu_torch.grid import block_grid
+from wrf_partmc_tpu_torch.parallel.mesh import block_of
 if task["kind"] == "transport":
     from wrf_partmc_tpu_torch.models.coupled.transport import transport_step
+    grid = block_grid(task["grid"], mesh)
+    cut = lambda t: block_of(t, mesh, *grid.global_shape)
     aero = tree_map(lambda t: shard_field(t, mesh), task["aero"])
-    out = transport_step(aero, task["probs"], task["xkhh"], task["exch"], task["grid"],
-                         task["cfg"], task["dt"], task["key"], task["rho3"], task["dz3"],
-                         mesh=mesh)
+    out = transport_step(aero, tree_map(cut, task["probs"]), cut(task["xkhh"]),
+                         cut(task["exch"]), grid, task["cfg"], task["dt"], task["key"],
+                         cut(task["rho3"]), cut(task["dz3"]), mesh=mesh)
+elif task["kind"] == "dycore":
+    from wrf_partmc_tpu_torch.models.dycore.solve import solve_step
+    out = {{}}
+    for name, (dyn, grid, cfg) in task["cases"].items():
+        cut = lambda t: block_of(t, mesh, grid.ny, grid.nx)
+        out[name] = solve_step(tree_map(cut, dyn), block_grid(grid, mesh), cfg)
 else:
     if task["kind"] == "cares":
         from wrf_partmc_tpu_torch.cares import build_cares_shape as build
     else:
         from wrf_partmc_tpu_torch.entry import build
+    from wrf_partmc_tpu_torch.parallel import halo
     model, state = build(*task["args"], **task.get("kw", {{}}), device="cpu", mesh=mesh)
-    out = model(state)
+    halo.reset_counts()
+    out = (model(state), halo.read_counts())
 torch.save(out, {path!r} + f".{{mesh.rank}}")
 pdist.shutdown()
 """
@@ -96,6 +124,7 @@ def run_ranks(tmp_path, name: str, task: dict, n: int = 4):
 def block(a, iy, ix, py, px, axes=(1, 2)):
     """Block (iy, ix) of a (py, px) split of numpy ``a`` on ``axes``."""
     ny, nx = a.shape[axes[0]] // py, a.shape[axes[1]] // px
+    axes = tuple(ax % a.ndim for ax in axes)
     idx = [slice(None)] * a.ndim
     idx[axes[0]] = slice(iy * ny, (iy + 1) * ny)
     idx[axes[1]] = slice(ix * nx, (ix + 1) * nx)
@@ -169,6 +198,99 @@ def test_transport_step_sharded_counters(transport_case):
     assert rdiag["movers"] > 0
     for _, diag in outs:
         assert {k: float(v) for k, v in diag.items()} == rdiag
+
+
+def _perturbed_dyn(cfg, grid, seed: int):
+    """The uniform initial state with seeded random winds, theta', moisture
+    and tracers, so every stencil reads a field that varies across the rank
+    edges."""
+    from wrf_partmc_tpu_torch.models.dycore.ideal import init_uniform
+
+    r = np.random.default_rng(seed)
+    dyn = init_uniform(cfg, grid, 5.0, 2.0)
+    f = lambda a, scale, base=0.0: torch.tensor(
+        (base + scale * r.random(tuple(a.shape))).astype(np.float32))
+    rep = dict(u=f(dyn.u, 8.0, -4.0), v=f(dyn.v, 8.0, -4.0), w=f(dyn.w, 0.2, -0.1),
+               theta_p=f(dyn.theta_p, 2.0, -1.0), moist=f(dyn.moist, 1e-3),
+               chem=f(dyn.chem, 1e-2), num_conc=f(dyn.num_conc, 1e6),
+               tke=f(dyn.tke, 0.5, 0.01))
+    if dyn.mu is not None:
+        rep["mu"] = f(dyn.mu, 20.0, -10.0)
+    return dataclasses.replace(dyn, **rep)
+
+
+def _dycore_cases():
+    """name -> (whole-domain dycore state, grid, config) of the block
+    dycore test."""
+    from wrf_partmc_tpu_torch.cares import cares_config
+    from wrf_partmc_tpu_torch.grid import make_grid
+
+    em = make_config(8, 8, 4, 16, 48)
+    les = em.replace(dynamics=dataclasses.replace(
+        em.dynamics, diff_opt=2, km_opt=2, sfs_opt=1, h_adv_order="weno5",
+        v_adv_order="weno3"))
+    cares = cares_config(12, 10, 8, n_part=16, cap=32).replace(n_class=8)
+    lin = make_config(8, 8, 4, 16, 48, dyn_opt="linear")
+    cfgs = dict(arw_periodic=em, arw_les=les, arw_open_cares=cares,
+                linear_periodic=lin, linear_open=lin.replace(boundary=OPEN))
+    out = {}
+    for i, (name, cfg) in enumerate(cfgs.items()):
+        grid = make_grid(cfg)
+        out[name] = (_perturbed_dyn(cfg, grid, i), grid, cfg)
+    return out
+
+
+@pytest.fixture(scope="module")
+def dycore_blocks(tmp_path_factory):
+    from wrf_partmc_tpu_torch.models.dycore.solve import solve_step
+
+    cases = _dycore_cases()
+    whole = {name: solve_step(dyn, grid, cfg) for name, (dyn, grid, cfg) in cases.items()}
+    outs = run_ranks(tmp_path_factory.mktemp("dycore"), "dycore",
+                     dict(kind="dycore", cases=cases))
+    return whole, outs
+
+
+# cases whose blocks agree within this share of each field's scale instead
+# of bit for bit (the module docstring: the ARW column sums at 8 levels)
+SCALE_TOL = {"arw_open_cares": 1e-4}
+
+
+@pytest.mark.parametrize("case", ["arw_periodic", "arw_les", "arw_open_cares",
+                                  "linear_periodic", "linear_open"])
+def test_block_dycore_step(dycore_blocks, case):
+    """Each rank's block step equals the whole-domain step's block: the
+    halo exchanges move data only, and every other operation of the step
+    is elementwise or column-local."""
+    whole, outs = dycore_blocks
+    ref_dyn, ref_diag = to_numpy(whole[case])
+    tol = SCALE_TOL.get(case)
+
+    def check(out, ref, what):
+        if tol is None:
+            np.testing.assert_array_equal(out, ref, err_msg=what)
+        else:
+            np.testing.assert_allclose(out, ref, rtol=0,
+                                       atol=tol * float(np.abs(ref).max()), err_msg=what)
+
+    n_checked = 0
+    for rank, out in enumerate(outs):
+        iy, ix = divmod(rank, 2)
+        dyn, diag = to_numpy(out[case])
+        cut = lambda a: block(a, iy, ix, 2, 2, axes=(-2, -1))
+        for f in dataclasses.fields(ref_dyn):
+            r = getattr(ref_dyn, f.name)
+            if r is None:
+                assert getattr(dyn, f.name) is None, f.name
+                continue
+            check(getattr(dyn, f.name), cut(r), f"{case} rank {rank} {f.name}")
+            n_checked += 1
+        for f in dataclasses.fields(ref_diag.probs):
+            check(getattr(diag.probs, f.name), cut(getattr(ref_diag.probs, f.name)),
+                  f"{case} rank {rank} probs.{f.name}")
+        for name in ("xkhh", "rho_u", "rho_v", "rho_w"):
+            check(getattr(diag, name), cut(getattr(ref_diag, name)), f"{case} rank {rank} {name}")
+    assert n_checked >= 4 * 9
 
 
 def test_dryrun_multichip_gloo():

@@ -6,17 +6,21 @@ capacity 48; coagulation, emission, deposition and transport on) takes one
 step as a world of one in this process (gloo) against
 ``__graft_entry__._build(mesh=...)`` at (1, 1), and on 4 gloo ranks
 against it at (2, 2) on the conftest's virtual CPU devices.  Each rank's
-blocks are held against the same block of the JAX result: dycore fields
-(every rank advances the whole domain) as tests/test_torch_coupled.py
+blocks are held against the same block of the JAX result: the dycore
+fields (each rank advances only its block) as tests/test_torch_coupled.py
 (rtol 1e-4, floor 1e-4 of each field's scale; w and ph roundoff floors),
 per cell the alive count exact, the represented number rtol 1e-5, the
 per-species volume rtol 1e-4 (floor 1e-6 of the largest), the gases rtol
-1e-5.  A (1, 1) mesh is not ``mesh=None``: its keys are folded with the
-block index, in both packages.
+1e-5.  The dycore blocks are also held bit for bit against the port's
+own undecomposed step (the particles draw other streams: a (1, 1) mesh is
+not ``mesh=None``, its keys are folded with the block index, in both
+packages), and no field is gathered: the step's collectives are the halo
+exchanges and the one sum of the transport counters.
 """
 
 import jax
 import numpy as np
+import pytest
 
 import __graft_entry__ as ge
 from test_torch_sharded import RANK_TIMEOUT_S, aero_block, block, run_ranks
@@ -24,7 +28,7 @@ from wrf_partmc_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from wrf_partmc_tpu_torch.convert import to_numpy
 from wrf_partmc_tpu_torch.entry import build
 from wrf_partmc_tpu_torch.models.coupled.driver import run_coupled
-from wrf_partmc_tpu_torch.parallel import distributed as pdist
+from wrf_partmc_tpu_torch.parallel import distributed as pdist, halo
 from wrf_partmc_tpu_torch.parallel.launch import free_port
 
 
@@ -40,7 +44,8 @@ DYN = ["u", "v", "w", "theta_p", "p_p", "mu", "ph", "moist", "chem", "num_conc",
 
 def assert_step_block(ref, out, iy, ix, py, px):
     for name in DYN:
-        r, o = getattr(ref.dyn, name), getattr(out.dyn, name)
+        r = block(getattr(ref.dyn, name), iy, ix, py, px, axes=(-2, -1))
+        o = getattr(out.dyn, name)
         atol = max(ATOL.get(name, 0.0), 1e-4 * float(np.abs(r).max()))
         np.testing.assert_allclose(o, r, rtol=1e-4, atol=atol, err_msg=name)
     ja, ta = aero_block(ref.aero, iy, ix, py, px), out.aero
@@ -52,29 +57,72 @@ def assert_step_block(ref, out, iy, ix, py, px):
     assert out.step == int(ref.step) == 1
 
 
-def test_coupled_step_world_of_one():
-    """A world of one (gloo, in this process) is the (1, 1) mesh: keys
-    folded with (0, 0), all-gathers of one block."""
-    ref = _jax_step((1, 1))
+@pytest.fixture(scope="module")
+def plain():
+    """The port's undecomposed step."""
+    model, state = build(8, 8, 4, n_part=16, cap=48, device="cpu")
+    return to_numpy(model(state))
+
+
+@pytest.fixture(scope="module")
+def world_of_one():
     pdist.init(f"127.0.0.1:{free_port()}", 1, 0, "cpu", timeout_s=RANK_TIMEOUT_S)
     try:
         mesh = pdist.global_mesh()
         model, state = build(8, 8, 4, n_part=16, cap=48, device="cpu", mesh=mesh)
+        halo.reset_counts()
         out = to_numpy(model(state))
+        return out, halo.read_counts()
     finally:
         pdist.shutdown()
-    assert_step_block(ref, out, 0, 0, 1, 1)
+
+
+def test_coupled_step_world_of_one(world_of_one, plain):
+    """A world of one (gloo, in this process) is the (1, 1) mesh: keys
+    folded with (0, 0), the halos local copies."""
+    out, counts = world_of_one
+    assert_step_block(_jax_step((1, 1)), out, 0, 0, 1, 1)
     # the folded keys make it another draw than the undecomposed step's
-    plain_model, plain_state = build(8, 8, 4, n_part=16, cap=48, device="cpu")
-    plain = to_numpy(plain_model(plain_state))
     assert not np.array_equal(plain.aero.num, out.aero.num)
+    assert counts["halo"]["calls"] > 0 and counts["p2p"]["calls"] == 0
+    assert counts["all_gather"]["calls"] == 0
 
 
-def test_coupled_step_2x2(tmp_path):
+def test_world_of_one_dycore_equals_undecomposed(world_of_one, plain):
+    """The 1x1 decomposed dycore is ``mesh=None``'s, bit for bit."""
+    out, _ = world_of_one
+    for name in DYN:
+        np.testing.assert_array_equal(getattr(out.dyn, name), getattr(plain.dyn, name),
+                                      err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def ranks_2x2(tmp_path_factory):
+    outs = run_ranks(tmp_path_factory.mktemp("coupled"), "coupled",
+                     dict(kind="coupled", args=(8, 8, 4, 16, 48)))
+    return [(to_numpy(out), counts) for out, counts in outs]
+
+
+def test_coupled_step_2x2(ranks_2x2):
     ref = _jax_step((2, 2))
-    outs = run_ranks(tmp_path, "coupled", dict(kind="coupled", args=(8, 8, 4, 16, 48)))
-    for rank, out in enumerate(outs):
-        assert_step_block(ref, to_numpy(out), *divmod(rank, 2), 2, 2)
+    for rank, (out, _) in enumerate(ranks_2x2):
+        assert_step_block(ref, out, *divmod(rank, 2), 2, 2)
+
+
+def test_coupled_step_2x2_dycore_blocks_equal_undecomposed(ranks_2x2, plain):
+    """Each rank's dycore block is the same block of the port's
+    undecomposed step, bit for bit, and the periodic step gathers nothing:
+    its collectives are the halo exchanges (P2P) and one all-reduce of the
+    transport counters."""
+    for rank, (out, counts) in enumerate(ranks_2x2):
+        for name in DYN:
+            np.testing.assert_array_equal(
+                getattr(out.dyn, name),
+                block(getattr(plain.dyn, name), *divmod(rank, 2), 2, 2, axes=(-2, -1)),
+                err_msg=f"rank {rank} {name}")
+        assert counts["all_gather"]["calls"] == 0, counts
+        assert counts["all_reduce"]["calls"] == 1, counts
+        assert counts["p2p"]["calls"] >= counts["halo"]["calls"] > 0, counts
 
 
 def test_run_coupled_threads_the_mesh():

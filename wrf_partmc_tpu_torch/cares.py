@@ -72,8 +72,8 @@ def build_cares_shape(nx, ny, nz, n_part=100, cap=128, dt=30.0, chem_on=True,
                       n_class_sources=6, device="cuda", mesh=None):
     """Build the CARES-shaped coupled model and its initial state on
     ``device`` (the card unless the caller names another; raises on a host
-    without CUDA).  With ``mesh`` (``parallel.mesh.Mesh``), the state holds
-    this rank's block of the particles and gases.  Returns
+    without CUDA).  With ``mesh`` (``parallel.mesh.Mesh``), the model and
+    the state are this rank's blocks of the global build.  Returns
     ``(CoupledModel, CoupledState)``."""
     require_device(device)
     cfg = cares_config(nx, ny, nz, n_part, cap, dt, chem_on)

@@ -79,6 +79,8 @@ def from_numpy(tree, device="cpu"):
             raise NotImplementedError(f"from_numpy: {name}.{f.name} is not ported")
     kw = {}
     for f in dataclasses.fields(cls):
+        if not hasattr(tree, f.name) and f.default is not dataclasses.MISSING:
+            continue                 # a port-only field (a Grid's decomposition)
         v = getattr(tree, f.name)
         if name == "CoupledState" and f.name == "step":
             kw[f.name] = int(np.asarray(v))

@@ -15,9 +15,10 @@ The model is built on the card unless the caller names another device
 default raises instead of running on the CPU.
 
 With ``mesh`` (``parallel.mesh.Mesh``) the build is one rank's of the
-decomposed model: the whole Eulerian state and this rank's block of the
-particles and gases, drawn as the block's slice of the global initial
-draw.  ``dryrun_multichip(n)`` runs one decomposed step over n ranks.
+decomposed model: the global build cut to this rank's block of every
+field (the block grid, the dycore, land and PBL states, the particles and
+gases, the particles drawn as the block's slice of the global initial
+draw).  ``dryrun_multichip(n)`` runs one decomposed step over n ranks.
 """
 
 from __future__ import annotations

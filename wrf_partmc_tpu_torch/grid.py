@@ -3,10 +3,16 @@
 Port of ``wrf_partmc_tpu/grid.py``: the same conventions (fields are
 ``[nz, ny, nx]``, owner-face staggering, eta = 1 at the surface) and the
 same float64 numpy construction, stored as float32 tensors on ``device``.
+
+A decomposed rank holds a block ``Grid`` (:func:`block_grid`): ``ny``/``nx``
+are its block's extents, the [ny, nx] and [nz(+1), ny, nx] metric fields
+its slices, and ``mesh``/``global_ny``/``global_nx`` place it in the
+domain.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -14,6 +20,8 @@ import torch
 
 from . import constants as c
 from .config import Config
+from .ops.stencil import MAX_HALO
+from .parallel.mesh import Mesh, block_of
 
 
 @dataclass(frozen=True)
@@ -44,11 +52,55 @@ class Grid:
     nx: int = 0
     ny: int = 0
     nz: int = 0
+    # the decomposition of a block grid (None: the whole domain) and the
+    # domain's extents (0: the grid's own)
+    mesh: Mesh | None = None
+    global_ny: int = 0
+    global_nx: int = 0
 
     @property
     def cell_volume(self) -> torch.Tensor:
         """[nz] base-state grid-cell volume [m3]."""
         return self.dx * self.dy * self.dz
+
+    @property
+    def global_shape(self) -> tuple[int, int]:
+        """(ny, nx) of the whole domain."""
+        return self.global_ny or self.ny, self.global_nx or self.nx
+
+    @property
+    def offsets(self) -> tuple[int, int]:
+        """(y0, x0): the global index of the block's first row and column."""
+        if self.mesh is None:
+            return 0, 0
+        ys, xs = self.mesh.slices(*self.global_shape)
+        return ys.start, xs.start
+
+
+# the fields of a Grid that lie on the horizontal grid
+HORIZONTAL_FIELDS = ("hgt", "mub", "phb", "pb3", "alb", "msft", "f_cor")
+
+
+def block_grid(grid: Grid, mesh: Mesh | None, min_extent: int = MAX_HALO) -> Grid:
+    """This rank's block of the whole-domain ``grid``: ``ny``/``nx`` the
+    block's extents, the horizontal metric fields their block.  Raises
+    when ``grid`` is a block already, when the mesh does not divide the
+    grid, or when a split axis leaves a block narrower than
+    ``min_extent`` (the widest stencil halo).  ``mesh=None`` returns
+    ``grid``."""
+    if mesh is None:
+        return grid
+    if grid.mesh is not None:
+        raise ValueError("block_grid: the grid is a block already")
+    ny_l, nx_l = mesh.block_shape(grid.ny, grid.nx)
+    for name, n, extent in (("y", ny_l, mesh.py), ("x", nx_l, mesh.px)):
+        if extent > 1 and n < min_extent:
+            raise ValueError(f"block_grid: a {n}-point block on mesh axis {name!r} is "
+                             f"narrower than the {min_extent}-point stencil halo")
+    blocks = {f: block_of(getattr(grid, f), mesh, grid.ny, grid.nx)
+              for f in HORIZONTAL_FIELDS}
+    return dataclasses.replace(grid, **blocks, ny=ny_l, nx=nx_l, mesh=mesh,
+                               global_ny=grid.ny, global_nx=grid.nx)
 
 
 def make_grid(cfg: Config, device="cpu", hgt=None, f_cor: float = 0.0,

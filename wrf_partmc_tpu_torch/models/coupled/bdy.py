@@ -73,10 +73,11 @@ def make_bdy(times, states, width: int = 5, chem: bool = True) -> BdyData:
 def zone_weights(grid: Grid, cfg: Config, dt: float = 0.0):
     """[ny, nx] per-step blend weight toward the boundary value: 1 in the
     spec zone, Davies relaxation weights decaying across the relax zone,
-    0 inside.  Built in float64 numpy, as the reference."""
+    0 inside.  Built in float64 numpy on the global indices, as the
+    reference, and cut to the block of a block ``grid``."""
     ns, nr = cfg.boundary.spec_zone, cfg.boundary.relax_zone
     W = ns + nr
-    ny, nx = grid.ny, grid.nx
+    ny, nx = grid.global_shape
     ii = np.arange(nx)
     jj = np.arange(ny)
     dist = np.minimum.outer(np.minimum(jj, ny - 1 - jj),
@@ -87,12 +88,46 @@ def zone_weights(grid: Grid, cfg: Config, dt: float = 0.0):
     frac = np.clip((W - n) / max(nr, 1), 0.0, 1.0)
     w_relax = 0.2 * frac * np.exp(-(n - ns - 1) / 2.0)
     w = np.where(in_spec, 1.0, np.where(in_relax, w_relax, 0.0))
-    return torch.as_tensor(w.astype(np.float32), device=grid.dz.device)
+    y0, x0 = grid.offsets
+    w = w[y0:y0 + grid.ny, x0:x0 + grid.nx]
+    return torch.as_tensor(np.ascontiguousarray(w, np.float32), device=grid.dz.device)
 
 
-def _interp_slabs(bdy: BdyData, name: str, t: float):
-    """The four slabs of ``name`` linearly interpolated to time ``t``; the
-    bracketing slabs are picked on the device (no host sync)."""
+def _overlap(start: int, stop: int, b0: int, n: int):
+    """(slab slice, field slice) of the global range [start, stop) that the
+    block [b0, b0 + n) holds, or None."""
+    lo, hi = max(start, b0), min(stop, b0 + n)
+    if lo >= hi:
+        return None
+    return slice(lo - start, hi - start), slice(lo - b0, hi - b0)
+
+
+def edge_sections(grid: Grid, width: int):
+    """The parts of the four edge slabs that lie on ``grid`` (the whole
+    domain, or a block of it), in paint order: (edge, slab index, field
+    index), each index the (y, x) slices of the last two axes.  An edge
+    slab's zone can reach past a block into the next, so each edge takes
+    the intersection of its global rows and columns with the block's."""
+    NY, NX = grid.global_shape
+    y0, x0 = grid.offsets
+    rows = _overlap(0, NY, y0, grid.ny)
+    cols = _overlap(0, NX, x0, grid.nx)
+    ranges = {"xs": (rows, _overlap(0, width, x0, grid.nx)),
+              "xe": (rows, _overlap(NX - width, NX, x0, grid.nx)),
+              "ys": (_overlap(0, width, y0, grid.ny), cols),
+              "ye": (_overlap(NY - width, NY, y0, grid.ny), cols)}
+    out = []
+    for e in EDGES:
+        ry, rx = ranges[e]
+        if ry is not None and rx is not None:
+            out.append((e, (ry[0], rx[0]), (ry[1], rx[1])))
+    return out
+
+
+def _interp_slabs(bdy: BdyData, name: str, t: float, sections):
+    """The ``sections`` of the slabs of ``name`` linearly interpolated to
+    time ``t``; the bracketing slabs are picked on the device (no host
+    sync)."""
     sl = bdy.slabs[name]
     times = bdy.times
     T = times.shape[0]
@@ -101,18 +136,20 @@ def _interp_slabs(bdy: BdyData, name: str, t: float):
     i0 = i1 - 1
     t0, t1 = times.index_select(0, i0), times.index_select(0, i1)
     f = torch.clamp((tt - t0) / torch.clamp(t1 - t0, min=1e-6), 0.0, 1.0)[0]
-    return {e: (1.0 - f) * sl[e].index_select(0, i0)[0]
-            + f * sl[e].index_select(0, i1)[0] for e in EDGES}
+    out = []
+    for e, s_idx, f_idx in sections:
+        slab = sl[e][(Ellipsis, *s_idx)]
+        out.append((f_idx, (1.0 - f) * slab.index_select(0, i0)[0]
+                    + f * slab.index_select(0, i1)[0]))
+    return out
 
 
-def _target_field(field, edges, width: int):
-    """A copy of ``field`` with the four edge slabs painted on; corners take
-    the later (y) paint, where the weights are the same."""
+def _target_field(field, painted):
+    """A copy of ``field`` with the edge sections painted on in order;
+    corners take the later (y) paint, where the weights are the same."""
     tgt = field.clone()
-    tgt[..., :, :width] = edges["xs"]
-    tgt[..., :, -width:] = edges["xe"]
-    tgt[..., :width, :] = edges["ys"]
-    tgt[..., -width:, :] = edges["ye"]
+    for f_idx, values in painted:
+        tgt[(Ellipsis, *f_idx)] = values
     return tgt
 
 
@@ -120,13 +157,14 @@ def apply_specified_relax(dyn: DycoreState, bdy: BdyData, t: float, grid: Grid,
                           cfg: Config, w2=None) -> DycoreState:
     """One post-step specified + relaxation blend of u/v/theta'/moist/mu/
     ph/chem.  ``w2``: the [ny, nx] zone weights (``zone_weights``), built
-    here when not given."""
+    here when not given.  On a block ``grid``, ``dyn`` is the block and
+    only the slab sections on the block are painted."""
     if w2 is None:
         w2 = zone_weights(grid, cfg, cfg.dynamics.dt)
-    width = bdy.width
+    sections = edge_sections(grid, bdy.width)
 
     def blend(field, name):
-        tgt = _target_field(field, _interp_slabs(bdy, name, t), width)
+        tgt = _target_field(field, _interp_slabs(bdy, name, t, sections))
         return field + w2 * (tgt - field)
 
     upd = {n: blend(getattr(dyn, n), n) for n in ("u", "v", "theta_p", "moist")}

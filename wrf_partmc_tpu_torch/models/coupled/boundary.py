@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from ...config import Config
 from ...grid import Grid
-from ...parallel.mesh import shard_field
+from ...ops.stencil import AXIS_X, AXIS_Y, on_grid, shift
 from ..dycore.state import DycoreState
 from ..partmc.aero_data import AeroData
 from ..partmc.aero_state import AeroState
@@ -25,32 +25,36 @@ from ..partmc.dist import sample_particles
 from ..partmc.scenario import Scenario
 
 
-def edge_inflow_masks(dyn: DycoreState, grid: Grid, cfg: Config, mesh=None):
+def edge_inflow_masks(dyn: DycoreState, grid: Grid, cfg: Config):
     """[nz, ny, nx] bool: edge cells whose face-normal wind blows into the
-    domain (u at west faces, v at south faces); with ``mesh``, this rank's
-    block of it."""
+    domain (u at west faces, v at south faces), from the global indices of
+    the cells; on a block ``grid``, the block's (the east and north faces
+    of the last cells are the wrapped first faces, from the neighbouring
+    rank through ``stencil.shift``)."""
     nz, ny, nx = grid.nz, grid.ny, grid.nx
+    NY, NX = grid.global_shape
+    y0, x0 = grid.offsets
     dev = dyn.u.device
-    ii = torch.arange(nx, device=dev).reshape(1, 1, nx)
-    jj = torch.arange(ny, device=dev).reshape(1, ny, 1)
+    ii = x0 + torch.arange(nx, device=dev).reshape(1, 1, nx)
+    jj = y0 + torch.arange(ny, device=dev).reshape(1, ny, 1)
     m = torch.zeros((nz, ny, nx), dtype=torch.bool, device=dev)
     b = cfg.boundary
-    if not b.periodic_x:
-        m = m | ((ii == 0) & (dyn.u > 0.0))
-        m = m | ((ii == nx - 1) & (torch.roll(dyn.u, -1, -1) < 0.0))
-    if not b.periodic_y:
-        m = m | ((jj == 0) & (dyn.v > 0.0))
-        m = m | ((jj == ny - 1) & (torch.roll(dyn.v, -1, -2) < 0.0))
-    return shard_field(m, mesh)
+    with on_grid(grid):
+        if not b.periodic_x:
+            m = m | ((ii == 0) & (dyn.u > 0.0))
+            m = m | ((ii == NX - 1) & (shift(dyn.u, 1, AXIS_X) < 0.0))
+        if not b.periodic_y:
+            m = m | ((jj == 0) & (dyn.v > 0.0))
+            m = m | ((jj == NY - 1) & (shift(dyn.v, 1, AXIS_Y) < 0.0))
+    return m
 
 
-def apply_gas_open_bc(gas, dyn: DycoreState, scn: Scenario, grid: Grid,
-                      cfg: Config, mesh=None):
-    """gas: [nz, ny, nx, G] ppb (with ``mesh``, this rank's block); inflow
-    edge cells take the background."""
+def apply_gas_open_bc(gas, dyn: DycoreState, scn: Scenario, grid: Grid, cfg: Config):
+    """gas: [nz, ny, nx, G] ppb (on a block ``grid``, with ``dyn``, the
+    rank's block); inflow edge cells take the background."""
     if cfg.boundary.periodic_x and cfg.boundary.periodic_y:
         return gas
-    inflow = edge_inflow_masks(dyn, grid, cfg, mesh)
+    inflow = edge_inflow_masks(dyn, grid, cfg)
     return torch.where(inflow[..., None], scn.back_gas, gas)
 
 
@@ -65,8 +69,8 @@ def resample_inflow_particles(aero: AeroState, dyn: DycoreState,
     if cfg.boundary.periodic_x and cfg.boundary.periodic_y:
         return aero
     cell_shape = aero.cell_shape
-    inflow = edge_inflow_masks(dyn, grid, cfg, mesh)
-    block = mesh.draw_block(grid.ny, grid.nx) if mesh is not None else None
+    inflow = edge_inflow_masks(dyn, grid, cfg)
+    block = mesh.draw_block(*grid.global_shape) if mesh is not None else None
     V = grid.cell_volume.reshape(-1, 1, 1).expand(cell_shape)
     n_bc = cfg.partmc.num_particles
     vol, num, src, wcl = sample_particles(key, scn.back_dist, aero_data, n_bc,

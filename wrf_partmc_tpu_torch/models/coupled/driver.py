@@ -28,20 +28,27 @@ Units at the coupling surface: chem tracers carry ppm, gas states ppb;
 NUM_CONC class tracers carry number per kg of dry air, particle
 populations absolute represented number per cell.
 
-With a ``mesh`` (``parallel.mesh.Mesh``) the step is decomposed over ranks:
-each rank holds its block of the particles, the gases and the removal
-counters, ``[nz, ny/py, nx/px, ...]``, and the whole Eulerian state (dycore,
-land, PBL), which every rank advances on the whole domain, so the dycore,
-advection, vertical diffusion, physics and radiation give the undecomposed
-result with no halo.  The particle operations run on the block: emission
-and inflow resampling draw the block's slice of the global draws; the
-cell-local operations (microphysics, deposition, rebalance) take their
-keys folded with the rank's mesh row, then column
+With a ``mesh`` (``parallel.mesh.Mesh``) the step is decomposed over ranks
+on the 2-D (y, x) mesh, as the JAX package's GSPMD sharding decomposes it:
+each rank holds and advances only its block ``[..., nz, ny/py, nx/px]`` of
+every field, Eulerian and particle alike: the dycore state, the land and
+PBL states, the particles, gases and removal counters, on its block
+``Grid`` (``grid.block_grid``: the metric fields' blocks and the block's
+place in the domain).  The step runs inside ``ops.stencil.on_grid``, so
+every horizontal neighbour access of the dycore, the advection, the
+subfilter stresses and the centred winds is a block stencil that takes
+its halo from the neighbouring ranks (``parallel.halo.pad_axis``); the
+column physics, the radiation and the vertical diffusion (kernel K1 on
+the block's columns) need none.  The lateral boundaries take the global
+indices of the block's cells (``bdy.zone_weights``, ``bdy.edge_sections``,
+``boundary.edge_inflow_masks``).  The particle operations run on the
+block: emission and inflow resampling draw the block's slice of the
+global draws; the cell-local operations (microphysics, deposition,
+rebalance) take their keys folded with the rank's mesh row, then column
 (:func:`cell_local_sharded`), as the JAX package's ``shard_map`` does; the
 transport sends the movers of the block's edge columns to the neighbours.
-All-gathers bring the block fields the Eulerian side reads back to every
-rank: one for the per-class number and the gases at the start of the step
-(``partmc_to_wrf``), one for the aerosol optics when ``do_optical`` is on.
+No field is gathered: the only collectives of a step are the halo
+exchanges and the sum of the transport counters.
 """
 
 from __future__ import annotations
@@ -54,11 +61,10 @@ import torch
 
 from ... import constants as c
 from ...config import Config
-from ...grid import Grid
-from ...ops.stencil import AXIS_X, AXIS_Y, shift
+from ...grid import Grid, block_grid
+from ...ops.stencil import AXIS_X, AXIS_Y, on_grid, shift
 from ...ops.vdiff import vertical_diffusion_state
-from ...parallel.distributed import gather_field
-from ...parallel.mesh import Mesh, shard_field
+from ...parallel.mesh import Mesh, block_of
 from ...utils import rng
 from ...utils.tree import tensor_leaves, tree_map, with_leaves
 from ..dycore.solve import solve_step
@@ -73,7 +79,7 @@ from ..partmc.env_state import EnvState
 from ..partmc.gas_data import GasData
 from ..partmc.mosaic import mosaic_timestep
 from ..partmc.nucleate import nucleate_step
-from ..partmc.optics import BulkOptics, bulk_optical_props
+from ..partmc.optics import bulk_optical_props
 from ..partmc.scenario import Scenario, update_aero_state, update_gas_state
 from ..partmc.seasalt import sample_seasalt
 from ..partmc.simple_chem import chem_step
@@ -158,18 +164,13 @@ def make_env(dyn: DycoreState, grid: Grid, cfg: Config, step: int) -> EnvState:
                     elapsed_time=step_time(step, cfg.dynamics.dt))
 
 
-def partmc_to_wrf(cs: CoupledState, grid: Grid, cfg: Config,
-                  mesh: Mesh | None = None) -> DycoreState:
-    """Particle number per class and gases into the Eulerian tracers; with
-    ``mesh``, both gathered from every rank's block in one all-gather."""
+def partmc_to_wrf(cs: CoupledState, grid: Grid, cfg: Config) -> DycoreState:
+    """Particle number per class and gases into the Eulerian tracers (on a
+    block, the block's)."""
     air_mass = cell_air_mass(cs.dyn, grid)
     nbc = cs.aero.num_by_class(cfg.n_class)                  # [nz,ny,nx,C]
-    gas = cs.gas
-    if mesh is not None:
-        both = gather_field(torch.cat([nbc, gas], dim=-1), mesh)
-        nbc, gas = both[..., :cfg.n_class], both[..., cfg.n_class:]
     num_tr = nbc.movedim(-1, 0) / air_mass
-    chem = gas.movedim(-1, 0) / 1000.0                       # ppb -> ppm
+    chem = cs.gas.movedim(-1, 0) / 1000.0                    # ppb -> ppm
     return dataclasses.replace(cs.dyn, num_conc=num_tr.contiguous(),
                                chem=chem.contiguous())
 
@@ -185,11 +186,11 @@ def emission_step(aero: AeroState, gas, env: EnvState, aero_data: AeroData,
     """Per-dt scenario forcing: gas emission/dilution, aerosol
     emission/dilution (``do_emission``) and the sea-salt surface source
     (``seasalt_param``), which emits into level 0 only from the cell-centred
-    first-level wind of ``dyn``.  With ``mesh``, ``aero``, ``gas`` and
-    ``env`` are this rank's block, ``dyn`` is whole, and the draws are the
-    block's slice of the global draws."""
+    first-level wind of ``dyn``.  With ``mesh``, every argument is this
+    rank's block (``grid`` its block grid) and the draws are the block's
+    slice of the global draws."""
     pc = cfg.partmc
-    block = mesh.draw_block(grid.ny, grid.nx) if mesh is not None else None
+    block = mesh.draw_block(*grid.global_shape) if mesh is not None else None
     dt = cfg.dynamics.dt
     k_scn, k_ss = rng.split(key)
     gas = update_gas_state(scn, gas, t, dt)
@@ -197,9 +198,10 @@ def emission_step(aero: AeroState, gas, env: EnvState, aero_data: AeroData,
         aero = update_aero_state(scn, aero, aero_data, t, dt, k_scn,
                                  pc.n_emit_slots, env.cell_volume, block)
     if pc.seasalt_param > 0:
-        u_c = 0.5 * (dyn.u[0] + shift(dyn.u[0], 1, AXIS_X))
-        v_c = 0.5 * (dyn.v[0] + shift(dyn.v[0], 1, AXIS_Y))
-        u10 = shard_field(torch.sqrt(u_c ** 2 + v_c ** 2), mesh)   # [ny, nx]
+        with on_grid(grid):
+            u_c = 0.5 * (dyn.u[0] + shift(dyn.u[0], 1, AXIS_X))
+            v_c = 0.5 * (dyn.v[0] + shift(dyn.v[0], 1, AXIS_Y))
+        u10 = torch.sqrt(u_c ** 2 + v_c ** 2)                    # [ny, nx]
         cell_shape = aero.cell_shape
         spume = pc.seasalt_class_spume if pc.seasalt_class_spume >= 0 else None
         vol, num, src, wcl = sample_seasalt(
@@ -319,12 +321,25 @@ def coupled_step(cs: CoupledState, grid: Grid, cfg: Config,
     """One full coupled timestep.  ``bdy``: the wrfbdy time series of the
     specified + relaxation boundaries (``bdy_w2`` its zone weights).
     ``mesh``: the decomposition (module docstring); ``cs`` then holds this
-    rank's blocks.  Returns (new_state, diag): the transport saturation
-    counters (``TRANSPORT_COUNTERS``, 0-d tensors, zero with transport off;
-    summed over the ranks) and, on a chemistry step with
+    rank's blocks and ``grid`` is its block grid
+    (``CoupledModel(mesh=...).grid``).  Returns (new_state, diag): the
+    transport saturation counters (``TRANSPORT_COUNTERS``, 0-d tensors,
+    zero with transport off; summed over the ranks) and, on a chemistry
+    step with
     ``record_aero_info``, the coagulation removal records
     ``coag_removed_id`` / ``coag_other_id`` [nz, ny, nx, P//2] (the
     block's)."""
+    if grid.mesh != mesh:
+        raise ValueError("coupled_step: with a mesh the grid must be its block grid "
+                         "(grid.block_grid), and without one the whole domain")
+    with on_grid(grid):
+        return _coupled_step(cs, grid, cfg, aero_data, gas_data, scn, exch_h,
+                             base_seed_key, mech, bdy, bdy_w2, mesh)
+
+
+def _coupled_step(cs: CoupledState, grid: Grid, cfg: Config, aero_data: AeroData,
+                  gas_data: GasData, scn: Scenario, exch_h, base_seed_key, mech,
+                  bdy, bdy_w2, mesh):
     pc = cfg.partmc
     dy = cfg.dynamics
     dt = dy.dt
@@ -343,8 +358,7 @@ def coupled_step(cs: CoupledState, grid: Grid, cfg: Config,
     t = step_time(cs.step, dt)
     cosz = solar_cos_zenith(cfg.domain, t)          # 0-d CPU tensor, a scalar operand
 
-    blk = lambda f: shard_field(f, mesh)
-    dyn = partmc_to_wrf(cs, grid, cfg, mesh)
+    dyn = partmc_to_wrf(cs, grid, cfg)
     dyn2, diag = solve_step(dyn, grid, cfg)
     if bdy is not None:
         dyn2 = apply_specified_relax(dyn2, bdy, t, grid, cfg, bdy_w2)
@@ -383,15 +397,14 @@ def coupled_step(cs: CoupledState, grid: Grid, cfg: Config,
             kv = kv + dy.kvdif
         dyn2 = vertical_diffusion_state(dyn2, kv, grid, rho_b, dt)
 
-    gas = blk(partmc_from_wrf(dyn2))
+    gas = partmc_from_wrf(dyn2)
     env = make_env(dyn2, grid, cfg, cs.step)
     if sfc_ustar is not None:
         env = dataclasses.replace(env, ustar=sfc_ustar.expand(env.temp.shape))
-    env_l = tree_map(blk, env)
 
     if pc.do_emission or pc.seasalt_param > 0:
         a0 = aero
-        aero, gas = emission_step(aero, gas, env_l, aero_data, scn, cfg, grid, dyn2,
+        aero, gas = emission_step(aero, gas, env, aero_data, scn, cfg, grid, dyn2,
                                   t, keys[rng.STREAM_EMISSION], mesh)
         record("dilution", a0, aero)
     else:
@@ -400,27 +413,22 @@ def coupled_step(cs: CoupledState, grid: Grid, cfg: Config,
     # aerosol optics, for the radiation direct effect and the photolysis
     # attenuation; from the population before this step's chemistry
     radiation = dy.ra_physics in (1, 4)
-    optics = optics_l = None
+    optics = None
     if pc.do_optical and radiation:
-        optics = optics_l = bulk_optical_props(aero, aero_data, grid.dz, env_l.cell_volume)
-        if mesh is not None:
-            whole = gather_field(torch.stack([optics_l.tauaer, optics_l.waer,
-                                              optics_l.gaer]), mesh, dims=(3, 4))
-            optics = BulkOptics(tauaer=whole[0], waer=whole[1], gaer=whole[2])
+        optics = bulk_optical_props(aero, aero_data, grid.dz, env.cell_volume)
 
     tdiag = {}
     if ((pc.do_coagulation or pc.do_condensation or pc.do_nucleation
          or pc.do_mosaic) and cs.step % m_chem == 0):
         j_scale = None
-        if optics_l is not None and pc.do_mosaic:
-            # column-local: the block's columns give the block of the whole
-            j_scale = photolysis_aerosol_factor(optics_l.tauaer, optics_l.waer,
-                                                optics_l.gaer, cosz)
+        if optics is not None and pc.do_mosaic:
+            j_scale = photolysis_aerosol_factor(optics.tauaer, optics.waer,
+                                                optics.gaer, cosz)
         a0 = aero
         aero, gas, coag_rem, events = cell_local_sharded(
             mesh, lambda a_, g_, env_, js_, k_: microphysics_step(
                 a_, g_, env_, aero_data, gas_data, cfg, t, k_, mech=mech, j_scale=js_),
-            (aero, gas, env_l, j_scale), (keys[rng.STREAM_COAG],))
+            (aero, gas, env, j_scale), (keys[rng.STREAM_COAG],))
         if rem is not None:
             # coagulation's losses apart from the rest of the macro-step's
             # (nucleation, MOSAIC, condensation)
@@ -480,14 +488,13 @@ def coupled_step(cs: CoupledState, grid: Grid, cfg: Config,
         bc_key = rng.step_key(base_seed_key, cs.step, rng.STREAM_BC)
         aero = resample_inflow_particles(aero, dyn2, scn, aero_data, grid, cfg, bc_key,
                                          mesh)
-        gas = apply_gas_open_bc(gas, dyn2, scn, grid, cfg, mesh)
+        gas = apply_gas_open_bc(gas, dyn2, scn, grid, cfg)
     if pc.do_deposition:
         a0 = aero
         aero = cell_local_sharded(
             mesh, lambda a_, env_, rmol_, dz1_, k_: surface_deposition(
                 a_, env_, aero_data, grid, cfg, k_, rmol=rmol_, dz1=dz1_),
-            (aero, env_l, None if sfc_rmol is None else blk(sfc_rmol),
-             None if dz3 is None else blk(dz3[0])),
+            (aero, env, sfc_rmol, None if dz3 is None else dz3[0]),
             (keys[rng.STREAM_DEPOSITION],))
         record("deposition", a0, aero)
     a0 = aero
@@ -509,8 +516,10 @@ def init_coupled(cfg: Config, grid: Grid, aero_data: AeroData,
                  gas_data: GasData, dyn: DycoreState,
                  ivgtyp=None, isltyp=None, mesh: Mesh | None = None) -> CoupledState:
     """The initial coupled state around ``dyn``: no particles, no gases, the
-    land and PBL states of the configuration.  With ``mesh``, the
-    particles, gases and removal counters are this rank's block."""
+    land and PBL states of the configuration.  With ``mesh``, ``grid`` and
+    ``dyn`` (and ``ivgtyp``/``isltyp``) are the whole domain's and the state
+    is this rank's block of every field: the global build cut by
+    ``parallel.mesh.block_of``."""
     dev = grid.dz.device
     ny, nx = (grid.ny, grid.nx) if mesh is None else mesh.block_shape(grid.ny, grid.nx)
     aero = zero_state(aero_data, cfg.partmc.max_particles,
@@ -525,6 +534,9 @@ def init_coupled(cfg: Config, grid: Grid, aero_data: AeroData,
         land = init_noah(grid.ny, grid.nx, t_sfc0, tbot=t_sfc0 - 3.0,
                          ivgtyp=ivgtyp, isltyp=isltyp, device=dev)
     pbl_q2 = init_q2(grid) if cfg.dynamics.bl_physics == 2 else None
+    if mesh is not None:
+        cut = lambda t: block_of(t, mesh, grid.ny, grid.nx)
+        dyn, land, pbl_q2 = tree_map(cut, (dyn, land, pbl_q2))
     removals = None
     if cfg.partmc.record_removals:
         z3 = torch.zeros((grid.nz, ny, nx), dtype=torch.float32, device=dev)
@@ -542,15 +554,18 @@ class CoupledModel(torch.nn.Module):
     records) is kept in ``last_diag``.  ``set_scenario`` swaps the
     ``Scenario`` between steps; ``scenario_fn(t)``, when a file-driven
     build gives one, is the scenario for model time t, which the runner
-    sets before each step.  ``mesh``: the decomposition over ranks; the
-    state is then this rank's (``coupled_step``)."""
+    sets before each step.  ``mesh``: the decomposition over ranks;
+    ``grid`` and ``exch_h`` are the whole domain's and the model registers
+    this rank's blocks of them (``grid.block_grid``), and the state is
+    this rank's (``coupled_step``)."""
 
     def __init__(self, cfg: Config, grid: Grid, aero_data: AeroData,
                  gas_data: GasData, scn: Scenario, exch_h, seed: int = 0,
                  bdy: BdyData | None = None, scenario_fn=None, mesh: Mesh | None = None):
         super().__init__()
         if mesh is not None:
-            mesh.block_shape(grid.ny, grid.nx)      # raises unless it divides the grid
+            exch_h = block_of(exch_h, mesh, grid.ny, grid.nx)
+            grid = block_grid(grid, mesh)
         self.cfg = cfg
         self.mesh = mesh
         self.scenario_fn = scenario_fn

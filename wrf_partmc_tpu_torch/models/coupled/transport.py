@@ -26,12 +26,11 @@ from ...config import Config
 from ...grid import Grid
 from ...ops.advection import OutflowProbs
 from ...ops.place import gather_rows, scatter_rows
-from ...ops.stencil import shift
+from ...ops.stencil import on_grid, shift
 from ...parallel import halo
 from ...parallel.mesh import Mesh
 from ...utils import rng
 from ...utils.at import set_at
-from ...utils.tree import tree_map
 from ..partmc.aero_state import AeroState, payload_channel_list, unpack_payload
 
 
@@ -212,14 +211,14 @@ def sample_moves(aero: AeroState, ph, R, key):
     return dj, di, torch.clamp(dest, 0, nz - 1), horizontal
 
 
-def open_boundary_drop(dj, di, horizontal, cfg: Config, grid: Grid | None = None,
-                       ix0: int = 0, iy0: int = 0):
+def open_boundary_drop(dj, di, horizontal, cfg: Config, grid: Grid | None = None):
     """[nz, ny, nx, P] mask of particles sampled across an open lateral
-    boundary (the reference's outflow discard).  ``ix0``/``iy0`` are the
-    block's global offsets in ``grid`` (0 and the arrays' own extents on
-    one device)."""
+    boundary (the reference's outflow discard), from the global indices of
+    the cells of ``grid`` (the whole domain, or a rank's block; None: the
+    arrays' own extents)."""
     _, nyl, nxl, _ = dj.shape
-    ny, nx = (nyl, nxl) if grid is None else (grid.ny, grid.nx)
+    ny, nx = (nyl, nxl) if grid is None else grid.global_shape
+    iy0, ix0 = (0, 0) if grid is None else grid.offsets
     drop = torch.zeros(dj.shape, dtype=torch.bool, device=dj.device)
     if not cfg.boundary.periodic_x:
         gi = ix0 + torch.arange(nxl, device=dj.device).reshape(1, 1, nxl, 1) + di
@@ -421,34 +420,30 @@ def edge_roll(mesh: Mesh):
 def transport_step_sharded(aero: AeroState, probs: OutflowProbs, xkhh, exch_h,
                            grid: Grid, cfg: Config, dt, key, mesh: Mesh, rho3, dz3):
     """Transport of this rank's block of the particles (the JAX package's
-    ``transport_step_sharded``).  The probability fields come from the
-    replicated Eulerian fields: the face probabilities are built on the
-    whole domain and sliced to the block, the column-local vertical
-    operator is built on the block's columns.  Each rank draws its moves
-    with the key folded by its mesh row, then column, rebuckets its block
-    and sends the movers of its edge columns to the neighbouring rank
+    ``transport_step_sharded``).  ``grid`` is the rank's block grid and the
+    fields (``probs``, ``xkhh``, ``exch_h``, ``rho3``, ``dz3``) its blocks:
+    the face probabilities take the neighbours' ``xkhh`` and ``rho3`` through
+    the block stencils' one-cell halo, the column-local vertical operator
+    is built on the block's columns.  Each rank draws its moves with the
+    key folded by its mesh row, then column, rebuckets its block and sends
+    the movers of its edge columns to the neighbouring rank
     (:func:`edge_roll`); the diagnostics are summed over the ranks."""
-    blk = lambda f: _block_cf(f, mesh, grid)
-    p_hdiff = horizontal_diffusion_probs(xkhh, grid, dt, rho3, cfg)
-    ph = tuple(blk(p) for p in normalized_face_probs(probs, p_hdiff))
-    R = vertical_operator(tree_map(blk, probs), blk(exch_h), grid, dt, blk(rho3), blk(dz3))
+    if grid.mesh != mesh:
+        raise ValueError("transport_step_sharded: the grid is not this mesh's block grid")
+    with on_grid(grid):
+        p_hdiff = horizontal_diffusion_probs(xkhh, grid, dt, rho3, cfg)
+    ph = normalized_face_probs(probs, p_hdiff)
+    R = vertical_operator(probs, exch_h, grid, dt, rho3, dz3)
     acc = preweight_acceptance(aero, ph, R, cfg, mesh)
     k = rng.fold_in(rng.fold_in(key, mesh.iy), mesh.ix)
     k_mv, k_thin = rng.split(k)
     dj, di, dest_k, horizontal = sample_moves(aero, ph, R, k_mv)
-    ys, xs = mesh.slices(grid.ny, grid.nx)
-    drop = open_boundary_drop(dj, di, horizontal, cfg, grid, ix0=xs.start, iy0=ys.start)
+    drop = open_boundary_drop(dj, di, horizontal, cfg, grid)
     new, diag = rebucket(aero, dest_k, dj, di, horizontal, drop, acc, cfg, k_thin,
                          roll=edge_roll(mesh))
     names = list(diag)
     total = halo.all_reduce_sum(torch.stack([diag[n] for n in names]), mesh)
     return new, dict(zip(names, total.unbind(0)))
-
-
-def _block_cf(f, mesh: Mesh, grid: Grid):
-    """This rank's block of a field whose last three axes are (nz, ny, nx)."""
-    ys, xs = mesh.slices(grid.ny, grid.nx)
-    return f[..., ys, xs]
 
 
 def transport_step(aero: AeroState, probs: OutflowProbs, xkhh, exch_h,

@@ -24,7 +24,7 @@ from ...config import Config
 from ...grid import Grid
 from ...ops.advection import (OutflowProbs, face_fluxes, flux_divergence,
                               rk3_advect_mono, rk3_advect_pd)
-from ...ops.stencil import AXIS_X, AXIS_Y, shift
+from ...ops.stencil import AXIS_X, AXIS_Y, on_grid, shift
 from ...ops.tridiag import solve as tridiag_solve
 from ..physics.microphysics import kessler_step, wsm5_step
 from ..physics.morrison import morrison_step
@@ -300,11 +300,18 @@ def solve_step(state: DycoreState, grid: Grid, cfg: Config):
     advected with per-class flux capture and the microphysics adjustment
     (Kessler, WSM5 or Morrison for mp_physics 1/2/10).  Returns
     (new_state, StepDiag).  The ARW core runs when ``dyn_opt == "arw"`` and
-    the state carries ``mu``; otherwise the linear core."""
-    if cfg.dynamics.dyn_opt == "arw" and state.mu is not None:
-        from .arw import solve_step_arw
+    the state carries ``mu``; otherwise the linear core.  On a block
+    ``grid`` (``grid.block_grid``) the state is the rank's block and every
+    horizontal neighbour access is a block stencil (``ops.stencil``)."""
+    with on_grid(grid):
+        if cfg.dynamics.dyn_opt == "arw" and state.mu is not None:
+            from .arw import solve_step_arw
 
-        return solve_step_arw(state, grid, cfg)
+            return solve_step_arw(state, grid, cfg)
+        return _solve_step_linear(state, grid, cfg)
+
+
+def _solve_step_linear(state: DycoreState, grid: Grid, cfg: Config):
     dyn = cfg.dynamics
     bx, by = bc_pair(cfg)
     rho_b, _, _ = base_profiles(grid)

@@ -69,6 +69,14 @@ def temperature(state: DycoreState, grid: Grid):
     return th * (p / c.P0) ** c.KAPPA
 
 
+def air_density(state: DycoreState, grid: Grid):
+    """[nz, ny, nx] air density [kg m-3] from the full pressure and
+    temperature (ideal gas, dry-air constant)."""
+    p = total_pressure(state, grid)
+    t = temperature(state, grid)
+    return p / (c.R_D * t)
+
+
 def layer_depths(state: DycoreState, grid: Grid, shape):
     """[nz, ny, nx] layer depths [m] of ``shape``: from the geopotential on
     the mass-coordinate core, the base-state depths on the linear core."""

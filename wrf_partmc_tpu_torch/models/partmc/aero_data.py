@@ -76,6 +76,22 @@ def make_aero_data(species=DEFAULT_SPECIES, device="cpu") -> AeroData:
                     kappa=f32(4), names=names)
 
 
+def parse_aero_data_dat(text: str, device="cpu") -> AeroData:
+    """Parse PartMC's ``aero_data.dat`` spec-file format: '#' comments,
+    rows of ``name density num_ions molec_weight kappa``."""
+    rows = []
+    for line in text.splitlines():
+        line = line.split("#")[0].strip()
+        if not line:
+            continue
+        parts = line.split()
+        rows.append((parts[0], float(parts[1]), int(float(parts[2])),
+                     float(parts[3]), float(parts[4])))
+    if not rows:
+        raise ValueError("no species rows found")
+    return make_aero_data(tuple(rows), device=device)
+
+
 def particle_volume(vol, dry: bool = False, aero_data: AeroData | None = None):
     """Total per-particle volume [..., P] from [..., S, P] composition."""
     if dry:

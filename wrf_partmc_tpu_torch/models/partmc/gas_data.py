@@ -47,3 +47,21 @@ def make_gas_data_cbmz(device="cpu") -> GasData:
     (``Registry/registry.chem:3986``), for ``models.partmc.cbmz``."""
     from .cbmz import CBMZ_GASES
     return make_gas_data(CBMZ_GASES, device=device)
+
+
+def parse_gas_data_dat(text: str, device="cpu") -> GasData:
+    """Parse PartMC's ``gas_data.dat`` format: '#' comments, rows of
+    ``name molec_weight`` (1e-3 kg/mol where the weight is left out)."""
+    rows = []
+    for line in text.splitlines():
+        line = line.split("#")[0].strip()
+        if not line:
+            continue
+        p = line.split()
+        rows.append((p[0], float(p[1]) if len(p) > 1 else 1.0e-3))
+    return make_gas_data(tuple(rows), device=device)
+
+
+def zero_gas_state(gas_data: GasData, cell_shape=(), device="cpu") -> torch.Tensor:
+    """Mix ratios [ppb], zeros of shape [*cell_shape, G]."""
+    return torch.zeros((*cell_shape, gas_data.n_spec), dtype=torch.float32, device=device)

@@ -5,7 +5,8 @@ Port of ``wrf_partmc_tpu/ops/vdiff.py``: backward-Euler column solve
 column.  The six fields share one set of coefficients, so they go through
 ``ops.tridiag.solve_fields`` together: one launch of kernel K1 on CUDA,
 each field read in its own layout ([nz, ny, nx] or [L, nz, ny, nx]) with
-no transpose.
+no transpose.  The solves are column-local: on a rank's block the
+coefficients and fields are the block's ``[nz, ny_l, nx_l]`` columns.
 """
 
 from __future__ import annotations
@@ -33,6 +34,14 @@ def vdiff_coeffs(kv_face, grid: Grid, rho_b, dt):
     dl = -torch.cat([zrow, cd], dim=0)
     d = 1.0 - du - dl
     return dl, d, du
+
+
+def diffuse_column(f, dl, d, du):
+    """Apply the implicit solve to one field f, [..., nz, ny, nx] with any
+    leading axes, against [nz, ny, nx] coefficients."""
+    if f.dim() <= 4:
+        return solve_fields(dl, d, du, [f])[0]
+    return solve_fields(dl, d, du, [f.reshape(-1, *f.shape[-3:])])[0].reshape(f.shape)
 
 
 FIELDS = ("u", "v", "theta_p", "moist", "chem", "tke")

@@ -8,9 +8,17 @@ too (their halos are then clamp-filled).  A mesh axis of extent 1 is a
 local copy with no collective: what a ppermute to self gives, and torch
 refuses a send to its own rank.
 
-Every collective adds to :data:`COUNTS`: calls, bytes and the largest
-single call's bytes for each kind (``p2p``: bytes sent; ``all_gather``:
-bytes of the gathered result; ``all_reduce``: bytes reduced).
+The stencils of a decomposed Eulerian block take their horizontal
+neighbours through :func:`pad_axis` (``ops.stencil.shift`` and
+``make_taps`` call it while a decomposition is active): a one- or
+two-sided halo of the widths the stencil reaches, one batch of sends and
+receives a call, as each of GSPMD's collective-permutes is one.
+
+Every call adds to :data:`COUNTS`: calls, bytes and the largest single
+call's bytes for each kind (``halo``: every :func:`pad_axis` call with the
+bytes of the halo it fills, local copies on an extent-1 axis included;
+``p2p``: bytes sent; ``all_gather``: bytes of the gathered result;
+``all_reduce``: bytes reduced).
 """
 
 from __future__ import annotations
@@ -22,7 +30,7 @@ import torch.distributed as dist
 
 from .mesh import Mesh
 
-KINDS = ("p2p", "all_gather", "all_reduce")
+KINDS = ("halo", "p2p", "all_gather", "all_reduce")
 COUNTS = {k: {"calls": 0, "bytes": 0, "max_bytes": 0} for k in KINDS}
 
 _TAG_UP, _TAG_DOWN = 1, 2    # data moving to the +1 / -1 neighbour
@@ -85,33 +93,58 @@ def _clamp_face(x, h: int, axis: int, lo: bool):
     return edge.repeat(reps)
 
 
+def pad_axis(x: torch.Tensor, lo: int, hi: int, axis: int, mesh: Mesh, axis_name: str,
+             periodic: bool = True) -> torch.Tensor:
+    """The local block ``x`` with ``lo`` halo points before and ``hi`` after
+    it on ``axis``: the last ``lo`` points of the rank at -1 and the first
+    ``hi`` of the rank at +1 along mesh axis ``axis_name`` ("y" or "x"),
+    wrapped around the mesh.  With ``periodic`` False the halos at the
+    global edges are clamp-filled (the edge point repeated), as
+    ``stencil.shift(bc="clamp")`` fills them on the whole domain.  On an
+    extent-1 axis the halo is a local copy (the block's own far faces: what
+    ``torch.roll`` reads).  Raises when a halo is wider than the block."""
+    axis %= x.dim()
+    size = x.shape[axis]
+    if lo == hi == 0:
+        return x
+    if lo < 0 or hi < 0:
+        raise ValueError(f"halo widths ({lo}, {hi}) must be >= 0")
+    if max(lo, hi) > size:
+        raise ValueError(f"halo width {max(lo, hi)} > the block's extent {size} on mesh "
+                         f"axis {axis_name!r}: use fewer ranks on that axis")
+    up = x.narrow(axis, size - lo, lo).contiguous()      # my +1 neighbour's lo halo
+    down = x.narrow(axis, 0, hi).contiguous()            # my -1 neighbour's hi halo
+    n = mesh.extent(axis_name)
+    if n == 1:
+        lo_halo, hi_halo = up, down
+    else:
+        lo_halo, hi_halo = torch.empty_like(up), torch.empty_like(down)
+        minus, plus = _neighbour(mesh, axis_name, -1), _neighbour(mesh, axis_name, 1)
+        sends, recvs = [], []
+        if lo:
+            sends.append((up, plus, _TAG_UP))
+            recvs.append((lo_halo, minus, _TAG_UP))
+        if hi:
+            sends.append((down, minus, _TAG_DOWN))
+            recvs.append((hi_halo, plus, _TAG_DOWN))
+        _p2p(mesh, sends, recvs)
+    if not periodic:
+        idx = _index(mesh, axis_name)
+        if idx == 0 and lo:
+            lo_halo = _clamp_face(x, lo, axis, lo=True)
+        if idx == n - 1 and hi:
+            hi_halo = _clamp_face(x, hi, axis, lo=False)
+    _count("halo", _nbytes(lo_halo) + _nbytes(hi_halo))
+    parts = ([lo_halo] if lo else []) + [x] + ([hi_halo] if hi else [])
+    return torch.cat(parts, dim=axis)
+
+
 def exchange_axis(x: torch.Tensor, h: int, axis: int, mesh: Mesh, axis_name: str,
                   periodic: bool = True) -> torch.Tensor:
     """Pad the local block ``x`` with ``h`` halo points on both sides of
-    ``axis``, filled from the neighbouring ranks along mesh axis
-    ``axis_name`` ("y" or "x").  Non-periodic global edges are
-    clamp-filled.  Returns ``x`` with ``axis`` extended by 2 h."""
-    axis %= x.dim()
-    size = x.shape[axis]
-    if h > size:
-        raise ValueError(f"halo width {h} > local extent {size}")
-    hi_face = x.narrow(axis, size - h, h).contiguous()   # to my +1 neighbour
-    lo_face = x.narrow(axis, 0, h).contiguous()          # to my -1 neighbour
-    n = mesh.extent(axis_name)
-    if n == 1:
-        lo_halo, hi_halo = hi_face, lo_face
-    else:
-        lo_halo, hi_halo = torch.empty_like(hi_face), torch.empty_like(lo_face)
-        minus, plus = _neighbour(mesh, axis_name, -1), _neighbour(mesh, axis_name, 1)
-        _p2p(mesh, [(hi_face, plus, _TAG_UP), (lo_face, minus, _TAG_DOWN)],
-             [(lo_halo, minus, _TAG_UP), (hi_halo, plus, _TAG_DOWN)])
-    if not periodic:
-        idx = _index(mesh, axis_name)
-        if idx == 0:
-            lo_halo = _clamp_face(x, h, axis, lo=True)
-        if idx == n - 1:
-            hi_halo = _clamp_face(x, h, axis, lo=False)
-    return torch.cat([lo_halo, x, hi_halo], dim=axis)
+    ``axis`` (:func:`pad_axis`).  Returns ``x`` with ``axis`` extended by
+    2 h."""
+    return pad_axis(x, h, h, axis, mesh, axis_name, periodic)
 
 
 def exchange_2d(x: torch.Tensor, h: int, mesh: Mesh, periodic=(True, True),

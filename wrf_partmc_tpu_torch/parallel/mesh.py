@@ -6,6 +6,9 @@ row-major order of the JAX package's device mesh.  The vertical is never
 decomposed.  A rank owns the block ``[:, iy*ny/py : (iy+1)*ny/py,
 ix*nx/px : (ix+1)*nx/px]`` of every [nz, ny, nx, ...] cell field
 (:func:`shard_field`); [ny, nx] fields are split on their two axes.
+:func:`block_of` cuts a global Eulerian field, whose last two axes are
+(y, x) whatever leads them (``[n_moist, nz, ny, nx]``, ``[nz+1, ny,
+nx]``, ...), into this rank's block.
 """
 
 from __future__ import annotations
@@ -127,3 +130,18 @@ def shard_field(x: torch.Tensor, mesh: Mesh | None, ny: int | None = None,
                          f"are not the {ny}x{nx} grid")
     ys, xs = mesh.slices(ny, nx)
     return x[(slice(None),) * ay + (ys, xs)]
+
+
+def block_of(x: torch.Tensor, mesh: Mesh | None, ny: int, nx: int) -> torch.Tensor:
+    """This rank's block of a global field whose last two axes are the
+    ``ny`` x ``nx`` grid, as a contiguous tensor of its own (it keeps no
+    reference to the global storage).  Raises unless the last two axes are
+    the global grid, so a block is never cut twice.  ``mesh=None`` returns
+    ``x``."""
+    if mesh is None:
+        return x
+    if tuple(x.shape[-2:]) != (ny, nx):
+        raise ValueError(f"block_of: the last two axes of {tuple(x.shape)} are not the "
+                         f"{ny}x{nx} grid")
+    ys, xs = mesh.slices(ny, nx)
+    return x[..., ys, xs].clone(memory_format=torch.contiguous_format)

@@ -23,6 +23,7 @@ and the result equals the slice of the global draw bit for bit.
 
 from __future__ import annotations
 
+import hashlib
 import math
 from dataclasses import dataclass
 
@@ -120,6 +121,11 @@ def base_key(seed: int) -> Key:
 def step_key(k: Key, step: int, stream: int) -> Key:
     """Key for (step, subsystem)."""
     return fold_in(fold_in(k, stream), step)
+
+
+def name_seed(name: str) -> int:
+    """A stable 31-bit seed from a string (named ensembles and tests)."""
+    return int.from_bytes(hashlib.sha256(name.encode()).digest()[:4], "little") & 0x7FFFFFFF
 
 
 def random_bits(k: Key, shape, device, block: Block | None = None) -> torch.Tensor:
