@@ -107,12 +107,15 @@ Phases, each printed on its own line and each fatal on failure:
 27. card against CPU, the decomposed step: a world of one rank over NCCL
     on ``cuda:0`` against a world of one over gloo on ``cpu`` (the 1x1
     mesh: keys folded with the block index, the halos local copies), one
-    step of ``entry.build(mesh=...)`` at 12x12x4 each, compared as phase
-    4; with more cards visible (up to 4), the same over ``factor_2d(n)``
-    ranks (``parallel.launch``), each rank's block compared.  Each card
-    rank's block of every dycore field is then held against the same
-    block of the undecomposed step on the card (bit-equal, or within
-    1e-4 of the field's scale, printed), and no step gathers a field;
+    step each of ``entry.build(mesh=...)`` at 12x12x4, of both option
+    sets (``build_option_set(mesh=...)``: mesoscale 12x12x4, LES 12x12x8)
+    and of the CARES shape at 12x10x8 (``build_cares_shape(mesh=...)``),
+    compared as phases 4, 16 and 10; with more cards visible (up to 4),
+    the same over ``factor_2d(n)`` ranks (``parallel.launch``), each
+    rank's block compared.  Each card rank's block of every dycore field
+    is then held against the same block of the undecomposed step on the
+    card (bit-equal, or within 1e-4 of the field's scale, printed), and
+    no step gathers a field;
 28. the decomposed main path: 40x40x10 at 1000 per cell on the
     ``factor_2d(n)`` mesh of n ranks, n the visible cards up to 4 (one
     rank in this process, more through ``parallel.launch``): every rank
@@ -152,11 +155,24 @@ checkout of the repository, the script exits non-zero and prints no result.
 
     python3 chip_smoke.py --decomposed
 
-runs only phases 1, 2, 5, 27 and 28, with their kernel holds: the
+runs only phases 1, 2, 5, 27, 28 and 29, with their kernel holds: the
 decomposition on every visible card (up to 4) against the undecomposed
 main path, for a machine of several cards (the strong- and weak-scaling
 ms/step beside phase 5's, the per-rank split, the P2P calls and bytes a
-step and the peak memory a card).
+step and the peak memory a card), then
+
+29. the option sets and the CARES shape decomposed on the visible cards:
+    mesoscale at 40x40x10 and LES at 40x40x16 (1000 per cell, capacity
+    1280), the CARES shape at 72x72x24 (100 per cell, capacity 128)
+    strong and, with more than one card, weak at (72 py)x(72 px)x24, each
+    beside the same path undecomposed on one card in the same call: a
+    warm-up and six timed steps, the peak memory a card of the build and
+    of the steps, the collectives a step with their bytes, each kernel's
+    launches a step and by caller, a two-step synced split per rank with
+    the halo exchanges timed inside; the CARES strong run's dycore blocks
+    after one step against the one-card step's.  Every kernel is then
+    held at the shapes these paths launched (K1 on the blocks' columns,
+    K2 and K3 at the rank-local shapes).
 """
 
 from __future__ import annotations
@@ -1634,20 +1650,29 @@ def les_initial_dyn(cfg, grid):
 
 
 def build_option_set(name: str, nx: int, ny: int, nz: int, n_part: int, cap: int,
-                     device="cuda"):
+                     device="cuda", mesh=None):
     """Option set ``name`` through ``run.build_model`` (the uniform case for
     mesoscale, warm_bubble for les), its initial dycore state replaced by
-    the set's: -> (CoupledModel, CoupledState)."""
+    the set's: -> (CoupledModel, CoupledState).  With ``mesh``, this rank's
+    part of it (``driver.decompose``), the mesoscale particles' tails lifted
+    (``lift_tails``) over the whole domain before the cut; the whole-domain
+    state is freed before the return."""
     import dataclasses
 
     from wrf_partmc_tpu_torch import run
+    from wrf_partmc_tpu_torch.models.coupled.driver import decompose
 
     cfg = option_config(name, nx, ny, nz, n_part, cap)
     case = "uniform" if name == "mesoscale" else "warm_bubble"
     model, state = run.build_model(cfg, case, device=device)
     dyn = (humid_sounding(state.dyn, model.grid) if name == "mesoscale"
            else les_initial_dyn(cfg, model.grid))
-    return model, dataclasses.replace(state, dyn=dyn)
+    state = dataclasses.replace(state, dyn=dyn)
+    if mesh is None:
+        return model, state
+    if name == "mesoscale":
+        state = lift_tails(state)
+    return decompose(model, state, mesh)
 
 
 def lift_tails(state, frac: float = 1e-6):
@@ -2499,18 +2524,42 @@ def stop_world(path: str | None):
         os.remove(path)
 
 
-def rank_step(path: str, nx: int = 12, ny: int = 12, nz: int = 4):
-    """One rank of a started world: one decomposed step of
-    ``entry.build(mesh=...)`` at nx x ny x nz (16 per cell), its state,
-    its block's place and collective counts saved to ``path.<rank>`` on
-    the CPU."""
+# phase 27's decomposed steps: path -> (nx, ny, nz, particles per cell,
+# capacity)
+SMALL_DECOMPOSED = {"em_uniform": (12, 12, 4, 16, 48), "mesoscale": (12, 12, 4, 16, 32),
+                    "les": (12, 12, 8, 16, 32), "cares": (12, 10, 8, 16, 32)}
+
+
+def build_path(kind: str, nx: int, ny: int, nz: int, n_part: int, cap: int, device,
+               mesh=None):
+    """The model and state of a decomposed path: em_uniform (``entry.build``),
+    an option set (``build_option_set``; the mesoscale particles' tails
+    lifted, with a mesh or without) or the CARES shape
+    (``cares.build_cares_shape``, chemistry on); with ``mesh``, this rank's
+    part of it."""
+    if kind == "em_uniform":
+        from wrf_partmc_tpu_torch.entry import build
+
+        return build(nx, ny, nz, n_part=n_part, cap=cap, device=device, mesh=mesh)
+    if kind == "cares":
+        from wrf_partmc_tpu_torch.cares import build_cares_shape
+
+        return build_cares_shape(nx, ny, nz, n_part=n_part, cap=cap, device=device, mesh=mesh)
+    model, state = build_option_set(kind, nx, ny, nz, n_part, cap, device=device, mesh=mesh)
+    return model, (lift_tails(state) if mesh is None and kind == "mesoscale" else state)
+
+
+def rank_step(path: str, kind: str = "em_uniform"):
+    """One rank of a started world: one decomposed step of path ``kind`` at
+    its ``SMALL_DECOMPOSED`` size, its state, its block's place and
+    collective counts saved to ``path.<rank>`` on the CPU."""
     import torch
 
-    from wrf_partmc_tpu_torch.entry import build
     from wrf_partmc_tpu_torch.parallel import distributed as pdist, halo
 
     mesh = pdist.global_mesh()
-    model, state = build(nx, ny, nz, n_part=16, cap=48, device=mesh.device, mesh=mesh)
+    nx, ny, nz, n_part, cap = SMALL_DECOMPOSED[kind]
+    model, state = build_path(kind, nx, ny, nz, n_part, cap, mesh.device, mesh)
     halo.reset_counts()
     out = model(state).to("cpu")
     ys, xs = mesh.slices(ny, nx)
@@ -2527,7 +2576,14 @@ def spawn_ranks(n: int, device: str, call: str, timeout_s: float = 600.0) -> lis
     code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke as c; "
             "from wrf_partmc_tpu_torch.parallel import distributed as d; "
             f"d.init_from_env({device!r}); c.{call}; d.shutdown()")
-    results = spawn(n, [sys.executable, "-c", code], timeout_s=timeout_s, cwd=ROOT)
+    env = None
+    if device == "cpu":
+        # CPU ranks share the host's cores: each takes its share of the
+        # threads (torch's and the BLAS's of the Mie fit's lstsq)
+        share = str(max(1, (os.cpu_count() or 1) // n))
+        env = dict(os.environ, OMP_NUM_THREADS=share, OPENBLAS_NUM_THREADS=share,
+                   MKL_NUM_THREADS=share)
+    results = spawn(n, [sys.executable, "-c", code], timeout_s=timeout_s, env=env, cwd=ROOT)
     bad = [(r, c, out[-2000:]) for r, (c, out) in enumerate(results) if c != 0]
     require(not bad, f"{n} {device} ranks failed: {bad}")
     return [out for _, out in results]
@@ -2564,50 +2620,59 @@ def hold_blocks(tag: str, whole, rank_out) -> str:
 
 
 def phase_card_vs_cpu_decomposed():
-    """A world of one over NCCL on the card, then one over gloo on the
-    CPU: one decomposed step at 12x12x4 each.  With more cards visible
-    (up to 4), the same over ``factor_2d(n)`` ranks, block by block.  Each
-    card rank's dycore block against the undecomposed step on the card."""
+    """For each ``SMALL_DECOMPOSED`` path (em_uniform, the two option sets,
+    the CARES shape): a world of one over NCCL on the card, then one over
+    gloo on the CPU, one decomposed step each; with more cards visible (up
+    to 4), the same over ``factor_2d(n)`` ranks, block by block.  Each card
+    rank's dycore block against the undecomposed step on the card."""
     import torch
 
-    from wrf_partmc_tpu_torch.entry import build
     from wrf_partmc_tpu_torch.parallel.mesh import factor_2d
 
     os.makedirs(RDV_DIR, exist_ok=True)
-    model, state = build(12, 12, 4, n_part=16, cap=48, device="cuda")
-    whole = model(state).to("cpu")
-    del model, state
     ns = sorted({1, min(4, torch.cuda.device_count())})
-    for n in ns:
-        outs = {}
-        for dev in ("cuda", "cpu"):
-            path = os.path.join(RDV_DIR, f"step-{dev}-{n}")
-            if n == 1:
-                world = start_world(dev)
-                try:
-                    rank_step(path)
-                finally:
-                    stop_world(world)
-            else:
-                spawn_ranks(n, dev, f"rank_step({path!r})")
-            outs[dev] = [torch.load(f"{path}.{r}", weights_only=False) for r in range(n)]
+    for kind, (nx, ny, nz, n_part, cap) in SMALL_DECOMPOSED.items():
+        model, state = build_path(kind, nx, ny, nz, n_part, cap, "cuda")
+        whole = model(state).to("cpu")
+        del model, state
+        size = f"{nx}x{ny}x{nz}, {n_part}/cell"
+        for n in ns:
+            outs = {}
+            for dev in ("cuda", "cpu"):
+                path = os.path.join(RDV_DIR, f"step-{kind}-{dev}-{n}")
+                if n == 1:
+                    world = start_world(dev)
+                    try:
+                        rank_step(path, kind)
+                    finally:
+                        stop_world(world)
+                else:
+                    spawn_ranks(n, dev, f"rank_step({path!r}, {kind!r})")
+                outs[dev] = [torch.load(f"{path}.{r}", weights_only=False) for r in range(n)]
+                for r in range(n):
+                    os.remove(f"{path}.{r}")
+            py, px = factor_2d(n)
             for r in range(n):
-                os.remove(f"{path}.{r}")
-        py, px = factor_2d(n)
-        for r in range(n):
-            a, b = outs["cuda"][r], outs["cpu"][r]
-            require(a["counts"] == b["counts"] and a["counts"]["all_gather"]["calls"] == 0
-                    and (n == 1 or a["counts"]["p2p"]["calls"] > 0),
-                    f"decomposed card vs CPU, rank {r}: collectives {a['counts']} vs "
-                    f"{b['counts']}")
-            print(f"[decomposed-card-vs-cpu] 12x12x4, 16/cell, {n} rank(s), mesh {py}x{px}, "
-                  f"rank {r} (NCCL on cuda vs gloo on cpu): "
-                  + compare_card_cpu(f"decomposed card vs CPU, rank {r} of {n}",
-                                     a["state"], b["state"])
-                  + f"; collectives {json.dumps(a['counts'])}")
-            print(f"[decomposed-blocks] 12x12x4, {n} rank(s), rank {r}'s dycore block "
-                  f"(NCCL, card) against the undecomposed step on the card: "
-                  + hold_blocks(f"decomposed block, rank {r} of {n}", whole, a))
+                a, b = outs["cuda"][r], outs["cpu"][r]
+                tag = f"decomposed {kind} card vs CPU, rank {r} of {n}"
+                require(a["counts"] == b["counts"] and a["counts"]["all_gather"]["calls"] == 0
+                        and (n == 1 or a["counts"]["p2p"]["calls"] > 0),
+                        f"{tag}: collectives {a['counts']} vs {b['counts']}")
+                extra = ""
+                if kind == "cares":
+                    ga, gb = a["state"].gas, b["state"].gas
+                    g_rel = float(((ga - gb).abs() / (gb.abs() + 1e-9)).max())
+                    require(torch.allclose(ga, gb, rtol=1e-4, atol=1e-9),
+                            f"{tag}: gases max rel {g_rel}")
+                    extra = f"gases max rel {g_rel:.2e}; "
+                print(f"[decomposed-card-vs-cpu] {kind} {size}, {n} rank(s), mesh {py}x{px}, "
+                      f"rank {r} (NCCL on cuda vs gloo on cpu): {extra}"
+                      + compare_card_cpu(tag, a["state"], b["state"],
+                                         floor=5e-4 if kind == "les" else 1e-4)
+                      + f"; collectives {json.dumps(a['counts'])}")
+                print(f"[decomposed-blocks] {kind} {size}, {n} rank(s), rank {r}'s dycore "
+                      f"block (NCCL, card) against the undecomposed step on the card: "
+                      + hold_blocks(f"decomposed {kind} block, rank {r} of {n}", whole, a))
 
 
 def _block_sites():
@@ -2618,32 +2683,62 @@ def _block_sites():
             (vdiff, "solve_fields", "K1 in block vertical diffusion", "thomas_solve")]
 
 
+def _path_sites(kind: str):
+    """The caller sites a decomposed path counts launches in: the rank-local
+    rebucket's and coagulation's K2/K3, the block dycore's and vertical
+    diffusion's K1, and per path K1 in MYJ and Noah (CARES) or K3 in the
+    particle rebalance and its ``split_largest`` (the option sets)."""
+    from wrf_partmc_tpu_torch.models.coupled import driver
+    from wrf_partmc_tpu_torch.models.partmc import aero_state
+    from wrf_partmc_tpu_torch.models.physics import lsm, myj
+
+    sites = _rebucket_sites("rank-local") + _block_sites()
+    if kind == "cares":
+        sites += [(myj, "tridiag_solve", "K1 in block MYJ", "thomas_solve"),
+                  (lsm, "tridiag_solve", "K1 in block Noah", "thomas_solve")]
+    elif kind != "em_uniform":
+        sites += [(driver, "rebalance", "K3 in rebalance", "gather_rows"),
+                  (aero_state, "split_largest", "K3 in rebalance/split_largest",
+                   "gather_rows")]
+    return sites
+
+
 def decomposed_run(nx: int = 40, ny: int = 40, n_timed: int = 6, n_split: int = 2,
-                   report: bool = False) -> dict:
-    """This rank's share of phase 28 in a world of n ranks: the decomposed
-    em_uniform path at nx x ny x 10, 1000 per cell, a warm-up and
-    ``n_timed`` timed steps, a synced split of ``n_split`` steps (the halo
-    exchanges and the transport's P2P timed inside the sections), then
-    ``entry.dryrun_multichip(n)``.  Returns its report (shapes as lists);
-    with ``report``, every rank also prints it as JSON."""
+                   report: bool = False, kind: str = "em_uniform", nz: int = 10,
+                   n_part: int = 1000, cap: int = 1280, save_first: str | None = None) -> dict:
+    """This rank's share of phases 28 and 29 in a world of n ranks: the
+    decomposed path ``kind`` (``build_path``) at nx x ny x nz, ``n_part``
+    per cell, a warm-up and ``n_timed`` timed steps, a synced split of
+    ``n_split`` steps (the halo exchanges and the transport's P2P timed
+    inside the sections), then for em_uniform ``entry.dryrun_multichip(n)``.
+    With ``save_first``, the dycore state after the warm-up step and the
+    block's place go to ``save_first.<rank>`` on the CPU.  Returns its
+    report (shapes as lists); with ``report``, every rank also prints it as
+    JSON."""
     import torch
     import torch.distributed as dist
 
-    from wrf_partmc_tpu_torch.entry import build, dryrun_multichip
+    from wrf_partmc_tpu_torch.entry import dryrun_multichip
     from wrf_partmc_tpu_torch.parallel import distributed as pdist, halo
 
     n = dist.get_world_size()
     mesh = pdist.global_mesh()
     torch.cuda.set_device(mesh.device)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model, state = build(nx, ny, 10, n_part=1000, cap=1280, device=mesh.device, mesh=mesh)
+    model, state = build_path(kind, nx, ny, nz, n_part, cap, mesh.device, mesh)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     by_caller = {}
-    restore = count_callers(by_caller, _rebucket_sites("rank-local") + _block_sites())
+    restore = count_callers(by_caller, _path_sites(kind))
     state = model(state)
+    if save_first is not None:
+        ys, xs = mesh.slices(ny, nx)
+        torch.save({"state": dataclasses.replace(state, aero=None, gas=None).to("cpu"),
+                    "ys": ys, "xs": xs}, f"{save_first}.{mesh.rank}")
     torch.cuda.synchronize()
     halo.reset_counts()
     dist.barrier()
@@ -2660,18 +2755,20 @@ def decomposed_run(nx: int = 40, ny: int = 40, n_timed: int = 6, n_split: int = 
     finite = bool(torch.isfinite(state.aero.num).all() and torch.isfinite(state.dyn.theta_p).all())
     diag = {k: float(v) for k, v in model.last_diag.items()}
     dist.barrier()
-    state, _, _, split = synced_split(model, state, n_split, f"decomposed rank {mesh.rank}",
+    state, _, _, split = synced_split(model, state, n_split,
+                                      f"decomposed {kind} rank {mesh.rank}",
                                       extra=((halo, "pad_axis", "*/halo exchanges"),
                                              (halo, "_p2p", "*/P2P")))
-    dry = dryrun_multichip(n, device="cuda")
-    rep = dict(n=n, mesh=list(mesh.shape), rank=mesh.rank, nx=nx, ny=ny, build_s=build_s,
-               ms=1e3 * dt / n_timed, steps=n_timed + 1, peak_gib=peak, alive=alive,
-               finite=finite, diag=diag, by_caller=by_caller, launches=launches,
+    dry = dryrun_multichip(n, device="cuda")["collectives"] if kind == "em_uniform" else None
+    rep = dict(n=n, mesh=list(mesh.shape), rank=mesh.rank, kind=kind, nx=nx, ny=ny, nz=nz,
+               build_s=build_s, build_peak_gib=build_peak, ms=1e3 * dt / n_timed,
+               steps=n_timed + 1, peak_gib=peak, alive=alive, finite=finite, diag=diag,
+               by_caller=by_caller, launches=launches,
                shapes={k: [list(map(_listify, sh)) for sh in v] for k, v in shapes.items()},
                collectives={k: {f: v / n_timed for f, v in rec.items() if f != "max_bytes"}
                             | {"max_bytes": rec["max_bytes"]} for k, rec in counts.items()},
                block=list(state.aero.num.shape), dyn_block=list(state.dyn.theta_p.shape),
-               split=split, dryrun=dry["collectives"])
+               split=split, dryrun=dry)
     if report:
         print("REPORT " + json.dumps(rep), flush=True)
     return rep
@@ -2685,15 +2782,16 @@ def _tuplify(x):
     return tuple(_tuplify(v) for v in x) if isinstance(x, list) else x
 
 
-def run_decomposed_world(n: int, nx: int, ny: int) -> list:
-    """Every rank's report of ``decomposed_run`` at nx x ny on n cards."""
+def run_decomposed_world(n: int, nx: int, ny: int, **kw) -> list:
+    """Every rank's report of ``decomposed_run(nx, ny, **kw)`` on n cards."""
     if n == 1:
         path = start_world("cuda")
         try:
-            return [decomposed_run(nx, ny)]
+            return [decomposed_run(nx, ny, **kw)]
         finally:
             stop_world(path)
-    outs = spawn_ranks(n, "cuda", f"decomposed_run({nx}, {ny}, report=True)")
+    args = "".join(f", {k}={v!r}" for k, v in kw.items())
+    outs = spawn_ranks(n, "cuda", f"decomposed_run({nx}, {ny}, report=True{args})")
     return [json.loads(next(line[7:] for line in out.splitlines()
                             if line.startswith("REPORT "))) for out in outs]
 
@@ -2770,17 +2868,131 @@ def phase_decomposed_path(kernels: dict):
     for name in ("scatter_rows", "gather_rows"):
         for sh in sorted(shapes[name], key=repr):
             hold(kernels, gen, name, sh)
-    if n > 1:
-        # K1 at the blocks this mesh makes of the CARES shape's 72x72x24
-        # (acoustic and MYJ, Noah, vertical diffusion with 10 moist and 77
-        # gases), which tests/test_torch_kernels_cuda.py holds too
-        by, bx = 72 // py, 72 // px
-        for sh in (k1_shapes((23, by, bx), [(23, by, bx)]),
-                   k1_shapes((4, by, bx), [(4, by, bx)]), vdiff_shapes(24, by, bx, 10, 77)):
-            if sh not in CHECKED["thomas_solve"]:
-                hold(kernels, gen, "thomas_solve", sh)
     torch.cuda.empty_cache()
     return shapes
+
+
+# phase 29's paths: (path, scaling, nx, ny, nz, particles per cell,
+# capacity); the weak runs' nx, ny are each rank's block
+DECOMPOSED_PATHS = (("mesoscale", "strong", 40, 40, 10, 1000, 1280),
+                    ("les", "strong", 40, 40, 16, 1000, 1280),
+                    ("cares", "strong", 72, 72, 24, 100, 128),
+                    ("cares", "weak", 72, 72, 24, 100, 128))
+FIRST_DIR = os.path.join(ROOT, "build", "first_step")
+
+
+def one_card_run(kind: str, nx: int, ny: int, nz: int, n_part: int, cap: int,
+                 n_timed: int = 6):
+    """The undecomposed path on this process's card, as phase 29 times the
+    decomposed one: a warm-up and ``n_timed`` timed steps.  Returns (ms/step,
+    peak GiB, launches a step, the dycore state after the warm-up step on
+    the CPU)."""
+    import torch
+
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    model, state = build_path(kind, nx, ny, nz, n_part, cap, "cuda")
+    reset_counts()
+    state = model(state)
+    first = dataclasses.replace(state, aero=None, gas=None).to("cpu")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        state = model(state)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / n_timed
+    launches, _ = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del model, state
+    _free()
+    return ms, peak, {k: v / (n_timed + 1) for k, v in launches.items()}, first
+
+
+def phase_decomposed_options(kernels: dict):
+    """Phase 29: the option sets and the CARES shape decomposed over
+    ``factor_2d(n)`` ranks (n the visible cards, up to 4), each beside the
+    undecomposed path on one card in the same call: ms/step, peak memory a
+    card (build and steps), the collectives a step with their bytes, the
+    kernels' launches a step and by caller, a synced split per rank with
+    the halo exchanges timed inside; the CARES strong run's dycore blocks
+    after one step against the one-card step's.  Every kernel is then held
+    at the shapes these paths launched."""
+    import torch
+
+    from wrf_partmc_tpu_torch.parallel.mesh import factor_2d
+
+    n = min(4, torch.cuda.device_count())
+    py, px = factor_2d(n)
+    os.makedirs(FIRST_DIR, exist_ok=True)
+    one = {}
+    all_shapes = {}
+    for kind, scaling, nx, ny, nz, n_part, cap in DECOMPOSED_PATHS:
+        if scaling == "weak" and n == 1:
+            continue
+        if kind not in one:                     # the strong run's domain on one card
+            one[kind] = one_card_run(kind, nx, ny, nz, n_part, cap)
+        ms1, peak1, launches1, first1 = one[kind]
+        if scaling == "weak":
+            nx, ny = nx * px, ny * py
+        save = os.path.join(FIRST_DIR, kind) if (kind, scaling) == ("cares", "strong") else None
+        reps = run_decomposed_world(n, nx, ny, kind=kind, nz=nz, n_part=n_part, cap=cap,
+                                    save_first=save)
+        rep = reps[0]
+        label = f"{kind} {scaling}"
+        tag = f"[decomposed-{kind}] {scaling}"
+        steps = rep["steps"]
+        c = rep["collectives"]
+        print(f"{tag}, n {n} (mesh {py}x{px}; each rank's block {rep['block']}): "
+              f"{nx}x{ny}x{nz}, {n_part}/cell, cap {cap}: build {rep['build_s']:.3f} s; "
+              f"{rep['ms']:.3f} ms/step on rank 0 (ranks "
+              + " ".join(f"{r['ms']:.3f}" for r in reps)
+              + f") against the undecomposed path's {ms1:.3f} on one card in this call "
+              f"({rep['ms'] / ms1:.4f}x); peak "
+              "GiB a card, build / steps: "
+              + " ".join(f"{r['build_peak_gib']:.3f}/{r['peak_gib']:.3f}" for r in reps)
+              + f" (one card: {peak1:.3f}); alive {rep['alive']}; transport diag "
+              + json.dumps(rep["diag"]))
+        print(f"{tag}: collectives a step: halo calls {c['halo']['calls']:g} "
+              f"({c['halo']['bytes']:.0f} halo bytes), P2P sends {c['p2p']['calls']:g} "
+              f"({c['p2p']['bytes']:.0f} bytes, largest {c['p2p']['max_bytes']}), all-gathers "
+              f"{c['all_gather']['calls']:g}, all-reduces {c['all_reduce']['calls']:g} "
+              f"({c['all_reduce']['bytes']:.0f} bytes)")
+        print(f"{tag}: launches a step "
+              + json.dumps({k: v / steps for k, v in rep["launches"].items()})
+              + f" (one card {json.dumps(launches1)}); by caller in {steps} steps: "
+              + json.dumps(rep["by_caller"]))
+        for r in reps:
+            sp = r["split"]
+            top = {k: v for k, v in sp.items() if "/" not in k and k != "synced step"}
+            print(f"{tag}: rank {r['rank']} synced split (ms/step): step "
+                  f"{sp['synced step']:.3f}; " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in sorted(top.items(), key=lambda kv: -kv[1]))
+                  + f"; inside them the halo exchanges {sp.get('*/halo exchanges', 0.0):.3f}"
+                  f" (their P2P and the transport's {sp.get('*/P2P', 0.0):.3f})")
+        require(all(r["finite"] for r in reps), f"decomposed {label}: not finite")
+        require(rep["alive"] > 0, f"decomposed {label}: no particle alive")
+        require(all(r["collectives"]["all_gather"]["calls"] == 0 for r in reps),
+                f"decomposed {label}: a field was gathered")
+        require(n == 1 or c["p2p"]["calls"] > 0, f"decomposed {label}: no halo exchange")
+        require(rep["dyn_block"] == [nz, ny // py, nx // px],
+                f"decomposed {label}: the dycore block is {rep['dyn_block']}")
+        for name, rec in kernels.items():
+            rec[f"launches_decomposed_{kind}_{scaling}"] = rep["launches"][name]
+            require(rep["launches"][name] > 0, f"{name} was not launched on the decomposed "
+                    f"{label} path")
+        for caller, count in rep["by_caller"].items():
+            require(count > 0 or "K3" in caller,
+                    f"decomposed {label}: no kernel launch from {caller}")
+        PATH_MS[f"decomposed {label}"] = rep["ms"]
+        if save is not None:
+            for r in range(n):
+                out = torch.load(f"{save}.{r}", weights_only=False)
+                os.remove(f"{save}.{r}")
+                print(f"{tag}: rank {r}'s dycore block after one step against the one-card "
+                      "step's: " + hold_blocks(f"decomposed {label}, rank {r}", first1, out))
+        for k, v in rep["shapes"].items():
+            all_shapes.setdefault(k, set()).update(_tuplify(sh) for sh in v)
+    return all_shapes
 
 
 def _free():
@@ -2793,7 +3005,7 @@ def _free():
 
 
 def run_decomposed(kernels: dict):
-    """Phases 5, 27 and 28 with their kernel holds (``--decomposed``)."""
+    """Phases 5, 27, 28 and 29 with their kernel holds (``--decomposed``)."""
     shapes, _ = phase_main_path(kernels)
     _free()
     phase_path_shapes("main path", kernels, shapes)
@@ -2801,6 +3013,9 @@ def run_decomposed(kernels: dict):
     shapes = phase_decomposed_path(kernels)
     _free()
     phase_path_shapes("decomposed path", kernels, shapes)
+    shapes = phase_decomposed_options(kernels)
+    _free()
+    phase_path_shapes("decomposed option-set and CARES paths", kernels, shapes)
 
 
 def run_all(kernels: dict):
@@ -2882,7 +3097,7 @@ def main(argv=None) -> int:
                              replaces="wrf_partmc_tpu/ops/pallas_tridiag.py:33",
                              callers=["ARW acoustic", "vertical diffusion", "MYJ", "Noah",
                                       "linear acoustic", "block ARW acoustic",
-                                      "block vertical diffusion"]),
+                                      "block vertical diffusion", "block MYJ", "block Noah"]),
         "scatter_rows": dict(route="cuda", source="wrf_partmc_tpu_torch/csrc/place.cu",
                              replaces="wrf_partmc_tpu/ops/place.py:107",
                              callers=["rebucket", "compact", "rank-local rebucket"]),

@@ -89,6 +89,25 @@ def test_mechanism_tables(mechs, field):
     assert pm.names == jm.names and pm.n_rxn == jm.n_rxn == 145
 
 
+def test_n_atoms(mechs):
+    assert cbmz.N_ATOMS == jcbmz.N_ATOMS
+
+
+def test_noy_conserved_in_every_reaction(mechs):
+    """tests/test_cbmz.py's NOy check on the port's own mechanism: every
+    reaction conserves the N atoms of N_ATOMS but those of NH3 + OH (NHx,
+    the one sanctioned N sink)."""
+    _, _, pm, _ = mechs
+    nvec = np.array([cbmz.N_ATOMS.get(n, 0) for n in pm.names], float)
+    imbal = pm.net.double().numpy() @ nvec
+    bad = np.nonzero(np.abs(imbal) > 1e-5)[0]
+    i1, i2, has2 = pm.i1.numpy(), pm.i2.numpy(), pm.has2.numpy()
+    allowed = [r for r in bad if pm.names[int(i1[r])] == "NH3"
+               or (bool(has2[r]) and pm.names[int(i2[r])] == "NH3")]
+    assert list(bad) == allowed, f"NOy-imbalanced reactions: {list(bad)}"
+    assert set(cbmz.N_ATOMS) <= set(pm.names)
+
+
 @pytest.mark.parametrize("cosz", [0.8, -0.2], ids=["day", "night"])
 def test_rate_coefficients(mechs, cosz):
     jm, _, pm, i_dms = mechs

@@ -18,6 +18,7 @@ same configuration, particle for particle with the tolerances of
 tests/test_torch_coupled.py.
 """
 
+import concurrent.futures
 import dataclasses
 
 import jax
@@ -71,14 +72,16 @@ def core():
                                         cfg.dynamics.dt * 0.5, 2)
         return tend, ac, jsolve.dyn_step(st, jgrid, cfg), jsolve.solve_step(st, jgrid, cfg)
 
-    ref = jax.tree.map(np.asarray, jax.jit(jax_all)(s))
-    pcfg = config_from_reference(cfg)
-    grid = make_grid(pcfg)
-    ps = from_numpy(s)
-    tend = solve._slow_tendencies(ps, grid, pcfg)
-    ac = solve._acoustic_integrate(ps, tend, ps.theta_p, grid, pcfg,
-                                   pcfg.dynamics.dt * 0.5, 2)
-    out = (tend, ac, solve.dyn_step(ps, grid, pcfg), solve.solve_step(ps, grid, pcfg))
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        ref = pool.submit(jax.jit(jax_all).lower(s).compile)   # beside the port's calls
+        pcfg = config_from_reference(cfg)
+        grid = make_grid(pcfg)
+        ps = from_numpy(s)
+        tend = solve._slow_tendencies(ps, grid, pcfg)
+        ac = solve._acoustic_integrate(ps, tend, ps.theta_p, grid, pcfg,
+                                       pcfg.dynamics.dt * 0.5, 2)
+        out = (tend, ac, solve.dyn_step(ps, grid, pcfg), solve.solve_step(ps, grid, pcfg))
+        ref = jax.tree.map(np.asarray, ref.result()(s))
     return ref, tuple(to_numpy(o) if not isinstance(o, tuple) else
                       tuple(to_numpy(x) for x in o) for o in out)
 
@@ -152,10 +155,13 @@ def coupled():
         fn, cs = ge._build(nx=12, ny=12, nz=4, n_part=16, cap=48, everything_on=True,
                            chem_on=False)
     assert cs.dyn.mu is None
-    jout = jax.tree.map(np.asarray, jax.jit(fn)(cs))
-    model, state = build(12, 12, 4, n_part=16, cap=48, dyn_opt="linear", device="cpu")
-    assert model.cfg.dynamics.dyn_opt == "linear" and state.dyn.mu is None
-    return jout, to_numpy(model(state))
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        step = pool.submit(jax.jit(fn).lower(cs).compile)   # beside the port's step
+        model, state = build(12, 12, 4, n_part=16, cap=48, dyn_opt="linear", device="cpu")
+        assert model.cfg.dynamics.dyn_opt == "linear" and state.dyn.mu is None
+        out = to_numpy(model(state))
+        jout = jax.tree.map(np.asarray, step.result()(cs))
+    return jout, out
 
 
 ATOL = {"w": 1e-5}

@@ -6,8 +6,9 @@ the field's scale, as tests/test_torch_vdiff.py: torch and XLA-CPU may
 round the Thomas divisions differently in the last ulp),
 ``models.dycore.state.air_density`` (rtol 1e-6),
 ``models.partmc.aero_data.parse_aero_data_dat``,
-``models.partmc.gas_data.parse_gas_data_dat``/``zero_gas_state`` and
-``utils.rng.name_seed`` (exact).
+``models.partmc.gas_data.parse_gas_data_dat``/``zero_gas_state``,
+``utils.rng.name_seed`` and ``models.partmc.env_state.make_env_state``
+(exact).
 """
 
 import dataclasses
@@ -23,6 +24,7 @@ from wrf_partmc_tpu.grid import make_grid as jax_make_grid
 from wrf_partmc_tpu.models.dycore import state as jstate
 from wrf_partmc_tpu.models.dycore.ideal import init_uniform as jax_init_uniform
 from wrf_partmc_tpu.models.partmc import aero_data as jaero_data
+from wrf_partmc_tpu.models.partmc import env_state as jenv_state
 from wrf_partmc_tpu.models.partmc import gas_data as jgas_data
 from wrf_partmc_tpu.ops import stencil as jstencil
 from wrf_partmc_tpu.ops import vdiff as jvdiff
@@ -30,7 +32,7 @@ from wrf_partmc_tpu.utils import rng as jrng
 from wrf_partmc_tpu_torch.convert import config_from_reference, from_numpy
 from wrf_partmc_tpu_torch.grid import make_grid
 from wrf_partmc_tpu_torch.models.dycore import state
-from wrf_partmc_tpu_torch.models.partmc import aero_data, gas_data
+from wrf_partmc_tpu_torch.models.partmc import aero_data, env_state, gas_data
 from wrf_partmc_tpu_torch.ops import stencil, vdiff
 from wrf_partmc_tpu_torch.utils import rng
 
@@ -113,3 +115,26 @@ def test_parse_gas_data_dat_and_zero_state():
 def test_name_seed(name):
     assert rng.name_seed(name) == jrng.name_seed(name)
     assert 0 <= rng.name_seed(name) < 2 ** 31
+
+
+@pytest.mark.parametrize("cell_shape", [(), (2, 3, 4)])
+@pytest.mark.parametrize("kw", [{}, dict(rel_humid=0.0), dict(rel_humid=1.0),
+                                dict(temp=250.5, pressure=7.3e4, rel_humid=0.31, height=812.5,
+                                     cell_volume=8.0e9, ustar=0.05, elapsed_time=1234.1)],
+                         ids=["default", "rh0", "rh1", "custom"])
+def test_make_env_state(cell_shape, kw):
+    """Every field exact, float32, over the cell shape; rel_humid 0 and 1 are
+    clipped to 0.001 and 0.95.  The JAX EnvState fills elapsed_time as an
+    array; the port's holds a float (the coupled step's EnvState does)."""
+    ref = jenv_state.make_env_state(cell_shape=cell_shape, **kw)
+    out = env_state.make_env_state(cell_shape=cell_shape, device="cpu", **kw)
+    for f in ("temp", "pressure", "rel_humid", "height", "cell_volume", "ustar"):
+        a = getattr(out, f)
+        assert a.dtype == torch.float32 and tuple(a.shape) == cell_shape, f
+        np.testing.assert_array_equal(a.numpy(), np.asarray(getattr(ref, f)), err_msg=f)
+    ref_t = np.asarray(ref.elapsed_time)
+    assert ref_t.shape == cell_shape and isinstance(out.elapsed_time, float)
+    assert (ref_t == out.elapsed_time).all()
+    if "rel_humid" in kw and kw["rel_humid"] in (0.0, 1.0):
+        assert float(out.rel_humid.flatten()[0]) == float(np.float32(
+            0.001 if kw["rel_humid"] == 0.0 else 0.95))

@@ -29,6 +29,7 @@ in the other): the mesoscale step starts from the reference's state with
 every particle's number lifted to at least 1e-6 of the largest.
 """
 
+import concurrent.futures
 import dataclasses
 
 import jax
@@ -75,25 +76,41 @@ def _jax_les(cfg):
 SETS = {"mesoscale": ((12, 12, 10), _jax_mesoscale), "les": ((12, 12, 8), _jax_les)}
 
 
+@pytest.fixture(scope="module")
+def stepped_sets():
+    """name -> the set's port model, its and the reference's initial states
+    and their steps, the reference's diag and grid.  Each reference step
+    compiles in a thread of its own, beside the next set's tracing and the
+    port's steps."""
+    built = {}
+    with concurrent.futures.ThreadPoolExecutor(len(SETS)) as pool:
+        for name in sorted(SETS):
+            shape, jax_build = SETS[name]
+            model, state = smoke.build_option_set(name, *shape, N_PART, CAP, device="cpu")
+            jcfg, grid, ad, gd, scn, cs, exch = jax_build(model.cfg)
+            key = jrng.base_key(0)
+            j0 = jax.tree.map(np.asarray, cs)
+            if name == "mesoscale":
+                num = cs.aero.num
+                cs = dataclasses.replace(cs, aero=dataclasses.replace(
+                    cs.aero, num=jnp.where(num > 0, jnp.maximum(num, 1e-6 * num.max()), 0.0)))
+            step = pool.submit(jax.jit(lambda c: coupled_step(
+                c, grid, jcfg, ad, gd, scn, exch, key, diag_out=True)).lower(cs).compile)
+            built[name] = (model, state, cs, j0, step, grid)
+        out = {}
+        for name, (model, state, cs, j0, step, grid) in built.items():
+            t0 = to_numpy(state)
+            # the port steps the reference's initial state (its own differs in
+            # the last ulp of the exponentials, test_same_config_and_initial_state)
+            t1 = to_numpy(model(from_numpy(jax.tree.map(np.asarray, cs))))
+            j1, jdiag = jax.tree.map(np.asarray, step.result()(cs))
+            out[name] = (name, model, (j0, t0), (j1, t1), jdiag, grid)
+    return out
+
+
 @pytest.fixture(scope="module", params=sorted(SETS))
-def stepped(request):
-    shape, jax_build = SETS[request.param]
-    model, state = smoke.build_option_set(request.param, *shape, N_PART, CAP, device="cpu")
-    jcfg, grid, ad, gd, scn, cs, exch = jax_build(model.cfg)
-    key = jrng.base_key(0)
-    step = jax.jit(lambda c: coupled_step(c, grid, jcfg, ad, gd, scn, exch, key,
-                                          diag_out=True))
-    j0 = jax.tree.map(np.asarray, cs)
-    if request.param == "mesoscale":
-        num = cs.aero.num
-        cs = dataclasses.replace(cs, aero=dataclasses.replace(
-            cs.aero, num=jnp.where(num > 0, jnp.maximum(num, 1e-6 * num.max()), 0.0)))
-    j1, jdiag = jax.tree.map(np.asarray, step(cs))
-    t0 = to_numpy(state)
-    # the port steps the reference's initial state (its own differs in the
-    # last ulp of the exponentials, test_same_config_and_initial_state)
-    t1 = to_numpy(model(from_numpy(jax.tree.map(np.asarray, cs))))
-    return request.param, model, (j0, t0), (j1, t1), jdiag, grid
+def stepped(request, stepped_sets):
+    return stepped_sets[request.param]
 
 
 def test_same_config_and_initial_state(stepped):

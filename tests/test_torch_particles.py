@@ -6,7 +6,8 @@ at 12x12x4 with 16 particles per cell (capacity 48).  Both sides draw the
 same threefry bits; the physics differ only in last-ulp rounding, so alive
 masks, slot layouts and integer fields must agree exactly and float fields
 to rtol 1e-5.  Dead slots are compared only by ``num == 0`` (the JAX
-add_particles branches themselves fill them differently).
+add_particles branches themselves fill them differently), but for
+add_particles with E > 64, whose every slot, dead or alive, is compared.
 """
 
 import dataclasses
@@ -127,10 +128,22 @@ def test_rebalance(setup, case, n_ideal):
     assert_aero_equal(ref, to_numpy(out))
 
 
-@pytest.mark.parametrize("E", [4, 100])
+def assert_every_slot_equal(ref, out):
+    """Every field of every slot, dead slots included: integers exact,
+    floats to rtol 1e-6."""
+    for name in ("pid", "source", "w_class", "hyst_leg", "src_id", "next_id"):
+        np.testing.assert_array_equal(getattr(out, name), getattr(ref, name), err_msg=name)
+    for name in ("num", "vol", "src_vol", "t_create"):
+        np.testing.assert_allclose(getattr(out, name), getattr(ref, name), rtol=1e-6, atol=0,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("E", [4, 65, 100])
 def test_add_particles(E):
-    """E=4 is the emission path; E=100 takes the JAX package's large-E
-    branch (2x2x1 cells, capacity 160), including one cell that overflows."""
+    """E=4 is the emission path; E=65 and E=100 take the JAX package's
+    large-E branch (2x2x1 cells, capacity 160), including one cell that
+    overflows.  That branch places only live entries, so there every field
+    of every slot is compared, dead slots included."""
     r = np.random.default_rng(E)
     ad = jax_make_aero_data()
     S, P, cs = 20, 160, (1, 2, 2)
@@ -154,4 +167,7 @@ def test_add_particles(E):
     out = aero_state.add_particles(from_numpy(st), *map(from_numpy, (new_vol, new_num,
                                                                       new_src, new_wcl)),
                                    time=30.0)
-    assert_aero_equal(jax.tree.map(np.asarray, ref), to_numpy(out), rtol=1e-6)
+    ref, out = jax.tree.map(np.asarray, ref), to_numpy(out)
+    assert_aero_equal(ref, out, rtol=1e-6)
+    if E > 64:
+        assert_every_slot_equal(ref, out)

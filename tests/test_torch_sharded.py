@@ -36,6 +36,7 @@ The decomposed coupled step is in tests/test_torch_sharded_step.py, which
 uses this file's rank runner.
 """
 
+import concurrent.futures
 import dataclasses
 import os
 import sys
@@ -95,6 +96,23 @@ elif task["kind"] == "dycore":
     for name, (dyn, grid, cfg) in task["cases"].items():
         cut = lambda t: block_of(t, mesh, grid.ny, grid.nx)
         out[name] = solve_step(tree_map(cut, dyn), block_grid(grid, mesh), cfg)
+elif task["kind"] == "options":
+    import chip_smoke
+    from wrf_partmc_tpu_torch.models.coupled import transport
+    from wrf_partmc_tpu_torch.models.coupled.driver import decompose
+    from wrf_partmc_tpu_torch.parallel import halo
+    cap = {{}}
+    nfp, vop = transport.normalized_face_probs, transport.vertical_operator
+    transport.normalized_face_probs = lambda *a: cap.setdefault("ph", nfp(*a))
+    transport.vertical_operator = lambda *a, **k: cap.setdefault("R", vop(*a, **k))
+    out = {{}}
+    for name, (args, state) in task["sets"].items():
+        model, _ = chip_smoke.build_option_set(name, *args, device="cpu")
+        model, state = decompose(model, state, mesh)
+        halo.reset_counts()
+        step = model(state)
+        out[name] = (step, halo.read_counts(), model.last_diag, dict(cap))
+        cap.clear()
 else:
     if task["kind"] == "cares":
         from wrf_partmc_tpu_torch.cares import build_cares_shape as build
@@ -119,6 +137,16 @@ def run_ranks(tmp_path, name: str, task: dict, n: int = 4):
     for r, (code_r, out) in enumerate(results):
         assert code_r == 0, f"rank {r} exited {code_r}:\n{out[-3000:]}"
     return [torch.load(f"{path}.{r}", weights_only=False) for r in range(n)]
+
+
+def ranks_in_background(tmp_path, name: str, task: dict, n: int = 4):
+    """Start ``run_ranks`` in a thread and return its future: the test
+    process computes its references while the ranks step."""
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    try:
+        return pool.submit(run_ranks, tmp_path, name, task, n)
+    finally:
+        pool.shutdown(wait=False)
 
 
 def block(a, iy, ix, py, px, axes=(1, 2)):
@@ -172,18 +200,18 @@ def transport_case(request, tmp_path_factory):
     dz3 = vol3 / (grid.dx * grid.dy)
     exch = jax_exch(grid, 0.4, 800.0)
     key = jax.random.fold_in(jax.random.key(3), 7)
-    mesh = jax_make_mesh(jax.devices()[:4], shape=(2, 2))
-    ref, rdiag = jax.jit(lambda a, k: jtransport.transport_step(
-        a, diag.probs, diag.xkhh, exch, grid, cfg, cfg.dynamics.dt, k, mesh=mesh,
-        return_diag=True, rho3=rho3, dz3=dz3))(cs.aero, key)
     np_ = lambda x: jax.tree.map(np.asarray, x)
     task = dict(kind="transport", aero=from_numpy(np_(cs.aero)),
                 probs=from_numpy(np_(diag)).probs,
                 xkhh=torch.tensor(np.asarray(diag.xkhh)), exch=torch.tensor(np.asarray(exch)),
                 grid=from_numpy(np_(grid)), cfg=cfg, dt=cfg.dynamics.dt, key=rng.Key(kd(key)),
                 rho3=torch.tensor(np.asarray(rho3)), dz3=torch.tensor(np.asarray(dz3)))
-    outs = run_ranks(tmp_path_factory.mktemp(request.param), "transport", task)
-    return np_(ref), {k: float(v) for k, v in np_(rdiag).items()}, outs
+    outs = ranks_in_background(tmp_path_factory.mktemp(request.param), "transport", task)
+    mesh = jax_make_mesh(jax.devices()[:4], shape=(2, 2))
+    ref, rdiag = jax.jit(lambda a, k: jtransport.transport_step(
+        a, diag.probs, diag.xkhh, exch, grid, cfg, cfg.dynamics.dt, k, mesh=mesh,
+        return_diag=True, rho3=rho3, dz3=dz3))(cs.aero, key)
+    return np_(ref), {k: float(v) for k, v in np_(rdiag).items()}, outs.result()
 
 
 def test_transport_step_sharded_blocks(transport_case):
@@ -245,10 +273,10 @@ def dycore_blocks(tmp_path_factory):
     from wrf_partmc_tpu_torch.models.dycore.solve import solve_step
 
     cases = _dycore_cases()
+    outs = ranks_in_background(tmp_path_factory.mktemp("dycore"), "dycore",
+                               dict(kind="dycore", cases=cases))
     whole = {name: solve_step(dyn, grid, cfg) for name, (dyn, grid, cfg) in cases.items()}
-    outs = run_ranks(tmp_path_factory.mktemp("dycore"), "dycore",
-                     dict(kind="dycore", cases=cases))
-    return whole, outs
+    return whole, outs.result()
 
 
 # cases whose blocks agree within this share of each field's scale instead

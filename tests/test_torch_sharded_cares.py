@@ -33,6 +33,7 @@ and which elements fall in the tail depends on the tensor's size; those
 fields agree within 1e-6 of their scale.
 """
 
+import concurrent.futures
 import os
 import sys
 
@@ -41,7 +42,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_sharded import aero_block, block, run_ranks
+from test_torch_sharded import aero_block, block, ranks_in_background
 from wrf_partmc_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from wrf_partmc_tpu_torch.cares import build_cares_shape
 from wrf_partmc_tpu_torch.convert import to_numpy
@@ -55,19 +56,7 @@ KW = dict(n_part=16, cap=32, chem_on=True)
 ATOL = {"w": 1e-5, "ph": 1e-3}
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    mesh = jax_make_mesh(jax.devices()[:4], shape=(2, 2))
-    fn, cs, _, _ = jax_build_cares_shape(*SHAPE, **KW, mesh=mesh)
-    ref = jax.tree.map(np.asarray, jax.jit(fn)(cs))
-    j0 = jax.tree.map(np.asarray, cs)
-    outs = run_ranks(tmp_path_factory.mktemp("cares"), "cares",
-                     dict(kind="cares", args=SHAPE, kw=KW, flush_denormal=True))
-    return ref, j0, [(to_numpy(o), counts) for o, counts in outs]
-
-
-@pytest.fixture(scope="module")
-def plain():
+def _plain():
     """The port's undecomposed CARES step, with subnormals flushed as the
     ranks run."""
     flushed = torch.set_flush_denormal(True)
@@ -77,6 +66,33 @@ def plain():
     finally:
         torch.set_flush_denormal(False)
         assert flushed
+
+
+@pytest.fixture(scope="module")
+def stepped(tmp_path_factory):
+    """(the JAX (2, 2) step, its initial state, each rank's step and
+    collectives, the port's undecomposed step); the references are computed
+    while the ranks step."""
+    outs = ranks_in_background(tmp_path_factory.mktemp("cares"), "cares",
+                               dict(kind="cares", args=SHAPE, kw=KW, flush_denormal=True))
+    mesh = jax_make_mesh(jax.devices()[:4], shape=(2, 2))
+    fn, cs, _, _ = jax_build_cares_shape(*SHAPE, **KW, mesh=mesh)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        step = pool.submit(jax.jit(fn).lower(cs).compile)   # beside the port's step
+        whole = _plain()
+        ref = jax.tree.map(np.asarray, step.result()(cs))
+    j0 = jax.tree.map(np.asarray, cs)
+    return ref, j0, [(to_numpy(o), counts) for o, counts in outs.result()], whole
+
+
+@pytest.fixture(scope="module")
+def runs(stepped):
+    return stepped[:3]
+
+
+@pytest.fixture(scope="module")
+def plain(stepped):
+    return stepped[3]
 
 
 def yx_block(a, rank):

@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 
 import __graft_entry__ as ge
-from test_torch_sharded import RANK_TIMEOUT_S, aero_block, block, run_ranks
+from test_torch_sharded import RANK_TIMEOUT_S, aero_block, block, ranks_in_background
 from wrf_partmc_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from wrf_partmc_tpu_torch.convert import to_numpy
 from wrf_partmc_tpu_torch.entry import build
@@ -97,15 +97,23 @@ def test_world_of_one_dycore_equals_undecomposed(world_of_one, plain):
 
 
 @pytest.fixture(scope="module")
-def ranks_2x2(tmp_path_factory):
-    outs = run_ranks(tmp_path_factory.mktemp("coupled"), "coupled",
-                     dict(kind="coupled", args=(8, 8, 4, 16, 48)))
-    return [(to_numpy(out), counts) for out, counts in outs]
-
-
-def test_coupled_step_2x2(ranks_2x2):
+def stepped_2x2(tmp_path_factory):
+    """(each rank's step and collectives, the JAX (2, 2) step computed while
+    the ranks step)."""
+    outs = ranks_in_background(tmp_path_factory.mktemp("coupled"), "coupled",
+                               dict(kind="coupled", args=(8, 8, 4, 16, 48)))
     ref = _jax_step((2, 2))
-    for rank, (out, _) in enumerate(ranks_2x2):
+    return [(to_numpy(out), counts) for out, counts in outs.result()], ref
+
+
+@pytest.fixture(scope="module")
+def ranks_2x2(stepped_2x2):
+    return stepped_2x2[0]
+
+
+def test_coupled_step_2x2(stepped_2x2):
+    ranks, ref = stepped_2x2
+    for rank, (out, _) in enumerate(ranks):
         assert_step_block(ref, out, *divmod(rank, 2), 2, 2)
 
 

@@ -64,7 +64,7 @@ from ...config import Config
 from ...grid import Grid, block_grid
 from ...ops.stencil import AXIS_X, AXIS_Y, on_grid, shift
 from ...ops.vdiff import vertical_diffusion_state
-from ...parallel.mesh import Mesh, block_of
+from ...parallel.mesh import Mesh, block_of, shard_field
 from ...utils import rng
 from ...utils.tree import tensor_leaves, tree_map, with_leaves
 from ..dycore.solve import solve_step
@@ -567,6 +567,7 @@ class CoupledModel(torch.nn.Module):
             exch_h = block_of(exch_h, mesh, grid.ny, grid.nx)
             grid = block_grid(grid, mesh)
         self.cfg = cfg
+        self.seed = seed
         self.mesh = mesh
         self.scenario_fn = scenario_fn
         self.base_key = rng.base_key(seed)
@@ -640,6 +641,31 @@ class CoupledModel(torch.nn.Module):
             self.exch_h, self.base_key, mech=self.mech, bdy=bdy,
             bdy_w2=self.bdy_w2 if bdy is not None else None, mesh=self.mesh)
         return out
+
+
+def decompose(model: CoupledModel, state: CoupledState,
+              mesh: Mesh) -> tuple[CoupledModel, CoupledState]:
+    """This rank's part of a whole-domain ``(model, state)``: the
+    counterpart of handing a whole-domain state to the JAX package's
+    ``coupled_step(mesh=...)``.  The dycore, land and PBL states go through
+    ``block_of``; the particles, gases and removal counters ([nz, ny, nx,
+    ...]) through ``shard_field``, each block a copy of its own, so the
+    whole-domain state can be freed before the first step; the model is
+    rebuilt from the same tables with ``mesh``."""
+    if model.mesh is not None:
+        raise ValueError("decompose: the model is already decomposed")
+    grid = model.grid
+    cut = lambda t: block_of(t, mesh, grid.ny, grid.nx)
+    part = lambda t: shard_field(t, mesh, grid.ny, grid.nx).clone(
+        memory_format=torch.contiguous_format)
+    dyn, land, pbl_q2 = tree_map(cut, (state.dyn, state.land, state.pbl_q2))
+    block_state = dataclasses.replace(
+        state, dyn=dyn, land=land, pbl_q2=pbl_q2, aero=tree_map(part, state.aero),
+        gas=part(state.gas), removals=tree_map(part, state.removals))
+    block_model = CoupledModel(model.cfg, grid, model.aero_data, model.gas_data, model.scn,
+                               model.exch_h, seed=model.seed, bdy=model.bdy,
+                               scenario_fn=model.scenario_fn, mesh=mesh)
+    return block_model, block_state
 
 
 def run_coupled(cs: CoupledState, grid: Grid, cfg: Config, aero_data: AeroData,

@@ -208,9 +208,12 @@ def add_particles(state: AeroState, new_vol, new_num, new_source, new_w_class,
     """Append up to E new particles per cell into free slots: entry e lands
     in the cell's e-th free slot (a rank cumsum), for any E.  Overflow beyond
     capacity is dropped with its number conserved by rescaling the placed
-    entries.  Entries with new_num == 0 leave dead slots; like the
-    reference's small-E path, those slots still take the entry's pid, source
-    and creation time, so dead slots compare only by ``num == 0``."""
+    entries.  Entries whose number is 0 after that rescale leave dead slots.
+    For E <= 64, like the reference's one-hot path, such a slot still takes
+    the entry's pid, source, weight class, creation time and ``src_id``, so
+    there dead slots compare only by ``num == 0``.  For E > 64, like the
+    reference's ``_add_particles_large``, only live entries are placed and
+    every field of a dead entry's slot is left as it was."""
     E = new_num.shape[-1]
     cs = state.cell_shape
     free = ~state.alive
@@ -227,6 +230,8 @@ def add_particles(state: AeroState, new_vol, new_num, new_source, new_w_class,
     new_num = new_num * placed_mask * scale[..., None]
 
     take = lambda a: torch.gather(a.expand(*cs, E), -1, e_safe)
+    if E > 64:
+        incoming = incoming & (take(new_num) > 0)
     num = torch.where(incoming, take(new_num), state.num)
     src_e = take(new_source.to(torch.int32))
     src = torch.where(incoming, src_e, state.source)

@@ -56,6 +56,14 @@ CBMZ_GASES = (
     ("CH3SO2OO", 111.0e-3), ("CH3SO2CH2OO", 125.0e-3), ("SULFHOX", 98.0e-3),
 )
 
+# number of N atoms carried by each NOy species (every reaction conserves
+# this sum; NH3 is NHx, not NOy, and NAP is a nitrate-forming peroxy that
+# picks its N up from NO)
+N_ATOMS = {
+    "HNO3": 1, "NO": 1, "NO2": 1, "NO3": 1, "N2O5": 2, "HONO": 1,
+    "HNO4": 1, "PAN": 1, "ONIT": 1, "ISOPN": 1,
+}
+
 
 # ---------------------------------------------------------------------------
 # Rate-expression builders.  Each returns f(T, M, H2O, J) -> k with T in K,

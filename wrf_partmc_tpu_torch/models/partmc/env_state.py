@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ... import constants as c
@@ -36,3 +37,16 @@ class EnvState:
         """Kelvin coefficient A [m] in exp(A/D) of the Koehler equation."""
         return (4.0 * c.WATER_MOLEC_WEIGHT * c.WATER_SURF_ENERGY
                 / (c.UNIV_GAS_CONST * self.temp * c.WATER_DENSITY))
+
+
+def make_env_state(temp=298.15, pressure=1.0e5, rel_humid=0.5, height=50.0,
+                   cell_volume=1.0, ustar=0.3, elapsed_time=0.0,
+                   cell_shape=(), device="cuda") -> EnvState:
+    """An EnvState of constant float32 fields over ``cell_shape``, the
+    relative humidity clipped to [0.001, 0.95].  ``elapsed_time`` is a float
+    (rounded to float32), as the coupled step's EnvState holds it."""
+    full = lambda v: torch.full(cell_shape, float(v), dtype=torch.float32, device=device)
+    return EnvState(temp=full(temp), pressure=full(pressure),
+                    rel_humid=torch.clamp(full(rel_humid), 0.001, 0.95),
+                    height=full(height), cell_volume=full(cell_volume),
+                    ustar=full(ustar), elapsed_time=float(np.float32(elapsed_time)))
