@@ -133,12 +133,20 @@ Phases, each printed on its own line and each fatal on failure:
     rank, the same at weak scaling: the (40 py)x(40 px)x10 domain, each
     rank's block the one-card main path's.  The process groups start on
     a file rendezvous under ``build/``.
+30. the bench: ``python -m wrf_partmc_tpu_torch.bench --preset full`` in a
+    process group of its own (each worker a fresh process: the dycore at
+    128x128x40, em_uniform at 1000 per cell chemistry off, at 100 with
+    chemistry on, at 1000 with 40 classes, the CARES shape at 72x72x24),
+    its lines printed: exit 0, the first point of every sweep, every
+    number finite and positive, the card and its power limit named, each
+    worker's kernels launched; then the dycore worker's model built here
+    and stepped twice, K1's launches counted and K1 held at its shapes.
 
 Paths 5, 11, 17, 18, 21 and 22 also print their kernel launches by caller
 (17, 18, 21 and 22 with K3 inside the particle rebalance and its
 ``split_largest``).
 
-After each of the paths 5, 7, 9, 11, 13, 14, 17, 18, 21, 22, 24, 26 and 28, every kernel is held
+After each of the paths 5, 7, 9, 11, 13, 14, 17, 18, 21, 22, 24, 26, 28 and 30, every kernel is held
 against its plain version at each argument shape that path launched it with and no
 earlier check held, with the same times.  K1 (``thomas_solve``: the
 acoustic, MYJ and Noah solves, and vertical diffusion's six fields in one
@@ -699,12 +707,16 @@ def phase_card_vs_cpu():
           + compare_card_cpu("card vs CPU", out_gpu, out_cpu))
 
 
-def drive(model, state, n_timed: int):
+def drive(model, box: list, n_timed: int):
     """One warm-up step and ``n_timed`` timed steps, the kernels' counts set
-    to 0 just before and read just after.  Returns (state, warm-up s, timed
-    s, launches, argument shapes)."""
+    to 0 just before and read just after.  ``box`` is a list holding the
+    initial state and no other reference to it: drive takes it out, so no
+    state but the step's input and output is alive through the steps (the
+    peak memory is the step's).  Returns (state, warm-up s, timed s,
+    launches, argument shapes)."""
     import torch
 
+    state = box.pop()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
@@ -744,7 +756,8 @@ def phase_main_path(kernels: dict, n_timed: int = 6):
     by_caller, captured, draws = {}, {}, {}
     restore = attribute_launches(by_caller, captured)
     restore_draws = record_normals(draws)
-    state, warm, dt, launches, shapes = drive(model, state, n_timed)
+    box, state = [state], None          # drive holds the only reference
+    state, warm, dt, launches, shapes = drive(model, box, n_timed)
     restore_draws()
     restore()
     cells = 40 * 40 * 10
@@ -866,7 +879,8 @@ def phase_chem_main_path(kernels: dict, n_timed: int = 30):
           f"means {json.dumps(_domain_means(model, state))}")
     # step 0 runs the chemistry macro-step, then steps 1..30, of which
     # step 30 runs it again
-    state, warm, dt, launches, shapes = drive(model, state, n_timed)
+    box, state = [state], None          # drive holds the only reference
+    state, warm, dt, launches, shapes = drive(model, box, n_timed)
     cells = 40 * 40 * 10
     ms = 1e3 * dt / n_timed
     alive = int(state.aero.n_alive().sum())
@@ -968,7 +982,8 @@ def phase_40class(kernels: dict):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     # step 0 (coagulation) and step 1
-    state, warm, dt, launches, shapes = drive(model, state, 1)
+    box, state = [state], None          # drive holds the only reference
+    state, warm, dt, launches, shapes = drive(model, box, 1)
     alive = int(state.aero.n_alive().sum())
     print(f"[40class] 40x40x10, 1000/cell, n_sources=38, n_class {model.cfg.n_class}: "
           f"build {build_s:.3f} s; step 0 (coagulation) {1e3 * warm:.3f} ms, step 1 "
@@ -1037,7 +1052,8 @@ def phase_cares_path(kernels: dict, n_timed: int = 20):
     by_caller, captured, draws = {}, {}, {}
     restore = attribute_launches(by_caller, captured)
     restore_draws = record_normals(draws)
-    state, warm, dt, launches, shapes = drive(model, state, n_timed)
+    box, state = [state], None          # drive holds the only reference
+    state, warm, dt, launches, shapes = drive(model, box, n_timed)
     restore_draws()
     restore()
     ms = 1e3 * dt / n_timed
@@ -1805,7 +1821,8 @@ def phase_options_path(kernels: dict, name: str, n_timed: int = 6, n_split: int 
     restore = attribute_launches(by_caller, {}, rebalance=True)
     restore_draws = record_normals(draws)
     try:
-        state, warm, dt, launches, shapes = drive(model, state, n_timed)
+        box, state = [state], None          # drive holds the only reference
+        state, warm, dt, launches, shapes = drive(model, box, n_timed)
     finally:
         restore_draws()
         restore()
@@ -2475,7 +2492,8 @@ def phase_linear_path(kernels: dict, n_timed: int = 6):
     build_s = time.perf_counter() - t0
     by_caller = {}
     restore = count_callers(by_caller, _linear_sites() + _rebucket_sites("single-device"))
-    state, warm, dt, launches, shapes = drive(model, state, n_timed)
+    box, state = [state], None          # drive holds the only reference
+    state, warm, dt, launches, shapes = drive(model, box, n_timed)
     restore()
     steps = n_timed + 1
     ms = 1e3 * dt / n_timed
@@ -3004,6 +3022,96 @@ def _free():
     torch.cuda.empty_cache()
 
 
+# the first point of each sweep of the bench's full preset, which every
+# worker must reach on 80 GB
+BENCH_FIRST_POINTS = {"coupled_num_particles_per_cell": 1000,
+                      "coupled_chem_on_particles_per_cell": 100,
+                      "coupled_40class_particles_per_cell": 1000,
+                      "cares_shape_grid": "72x72x24"}
+BENCH_TIMEOUT_S = 600
+BENCH_DYCORE = (128, 128, 40)
+
+
+def _numbers(v):
+    if isinstance(v, dict):
+        for x in v.values():
+            yield from _numbers(x)
+    elif isinstance(v, list):
+        for x in v:
+            yield from _numbers(x)
+    elif not isinstance(v, str):
+        yield v
+
+
+def phase_bench(kernels: dict):
+    """``python -m wrf_partmc_tpu_torch.bench --preset full`` in its own
+    process group (killed whole after ``BENCH_TIMEOUT_S``): exit 0, the
+    first sweep point taken everywhere, every number finite and positive,
+    the card and its power limit named, the kernels launched by every
+    worker (the dycore's K1; K1, K2 and K3 in the others).  Then the dycore
+    worker's model built here at 128x128x40 and stepped twice, with K1's
+    launches counted, and K1 held at every shape it gave."""
+    import signal
+
+    import torch
+
+    t0 = time.perf_counter()
+    p = subprocess.Popen([sys.executable, "-m", "wrf_partmc_tpu_torch.bench", "--preset",
+                          "full"], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True, start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        out, err = p.communicate()
+        raise SmokeFailure(f"bench: killed after {BENCH_TIMEOUT_S} s; stdout: {out[-3000:]}; "
+                           f"stderr: {err[-3000:]}")
+    wall = time.perf_counter() - t0
+    lines = out.strip().splitlines()
+    for line in lines:
+        print(line if line.startswith("[bench]") else f"[bench] {line}")
+    require(p.returncode == 0 and lines, f"bench: return code {p.returncode}; stderr: "
+            f"{err[-3000:]}")
+    res = json.loads(lines[-1])
+    ex = res["extra"]
+    for key, want in BENCH_FIRST_POINTS.items():
+        require(ex.get(key) == want, f"bench: {key} {ex.get(key)!r}, not the first "
+                f"sweep point {want!r}")
+    nums = list(_numbers(res))
+    require(all(isinstance(x, (int, float)) and not isinstance(x, bool) and x == x
+                and 0 < x < float("inf") for x in nums),
+            "bench: a value is not a finite positive number")
+    require(ex["device"].startswith(torch.cuda.get_device_name(0) + ", ")
+            and ex["device"].endswith(" W"), f"bench: device {ex['device']!r}")
+    for line in lines[:-1]:
+        worker, _, rec = line.partition(": ")
+        require(rec.startswith("{"), f"bench: {line[:200]}")
+        launches = json.loads(rec)["launches"]
+        need = ("thomas_solve",) if worker.startswith("[bench] dycore") else tuple(launches)
+        require(all(launches[k] > 0 for k in need), f"bench: {line[:80]}: launches "
+                f"{launches}")
+    print(f"[bench] {len(nums)} numbers, all finite and positive; first sweep points "
+          f"taken; {wall:.1f} s")
+
+    from wrf_partmc_tpu_torch.bench import _build_dycore
+
+    step, state = _build_dycore(*BENCH_DYCORE, device="cuda")
+    reset_counts()
+    for _ in range(2):
+        state = step(state)
+    torch.cuda.synchronize()
+    launches, shapes = read_counts()
+    require(bool(torch.isfinite(state.theta_p).all()), "bench dycore: theta_p not finite")
+    n = launches["thomas_solve"]
+    require(n > 0, "thomas_solve was not launched on the bench's dycore path")
+    kernels["thomas_solve"]["launches_bench_dycore"] = n
+    print(f"[launches] bench dycore path {'x'.join(map(str, BENCH_DYCORE))}, 2 steps: "
+          f"thomas_solve {n} ({n / 2:g} a step), max |w| {float(state.w.abs().max()):.4f}")
+    del step, state
+    _free()
+    phase_path_shapes("bench dycore path", kernels, shapes)
+
+
 def run_decomposed(kernels: dict):
     """Phases 5, 27, 28 and 29 with their kernel holds (``--decomposed``)."""
     shapes, _ = phase_main_path(kernels)
@@ -3019,7 +3127,7 @@ def run_decomposed(kernels: dict):
 
 
 def run_all(kernels: dict):
-    """Phases 3-28."""
+    """Phases 3-28 and 30."""
     phase_kernels(kernels)
     phase_card_vs_cpu()
     shapes, captured = phase_main_path(kernels)
@@ -3080,9 +3188,11 @@ def run_all(kernels: dict):
     shapes = phase_decomposed_path(kernels)
     _free()
     phase_path_shapes("decomposed path", kernels, shapes)
+    phase_bench(kernels)
 
 
 def main(argv=None) -> int:
+    t_start = time.perf_counter()
     decomposed_only = (sys.argv[1:] if argv is None else argv) == ["--decomposed"]
     sys.path.insert(0, ROOT)
     try:
@@ -3113,6 +3223,7 @@ def main(argv=None) -> int:
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
+    print(f"[wall] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [dict(name=k, **v) for k, v in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
