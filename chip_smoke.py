@@ -15,6 +15,10 @@ Phases, each printed on its own line and each fatal on failure:
    for the bytes these inputs need at 3.35 TB/s, or for the operations at
    67 TFLOP/s, whichever is larger).  The call time of every kernel is the
    host clock over many wrapper calls ending in a synchronize, per call.
+   K4 (``threefry_draw``, every bulk random draw) is held in each mode at
+   the particle draws' [10, 40, 40, 1280], bit for bit against its plain
+   version on the card and on the CPU, timed like K1 (its bound: the bytes
+   it writes, or its int32, float32 and float64 operations at their peaks);
    The kernel times come from two methods: K1's is device time per launch
    from a CUDA graph of 100 wrapper calls replayed between two events (the
    replays read the same inputs, so below the 50 MB L2 they come from L2:
@@ -25,7 +29,11 @@ Phases, each printed on its own line and each fatal on failure:
    from the same state;
 5. main path: the em_uniform coupled step at 40x40x10 cells, 1000 particles
    per cell (capacity 1280), chemistry off: one warm-up step and six timed
-   steps (one full coagulation cadence), with every kernel's launch count;
+   steps (one full coagulation cadence), with every kernel's launch count,
+   then the synced draws (``draw_split``): two steps with every bulk draw
+   between two synchronizes through K4, and two through the plain version
+   called explicitly, each with its draws' ms and share of the step (also
+   on paths 7, 11 and 28, on every rank);
 6. card against CPU, chemistry on: the CBM-Z rate coefficients (the
    subnormal-prefactor DMS rate against float64), then one chem-on coupled
    step (77-gas CBM-Z + MOSAIC, 0.2 ppb DMS) at 12x12x4, chem_dt 60 s, on
@@ -140,13 +148,21 @@ Phases, each printed on its own line and each fatal on failure:
     its lines printed: exit 0, the first point of every sweep, every
     number finite and positive, the card and its power limit named, each
     worker's kernels launched; then the dycore worker's model built here
-    and stepped twice, K1's launches counted and K1 held at its shapes.
+    and stepped twice, K1's launches counted and K1 held at its shapes;
+31. the draws: K4's launches a step on every path, each path's synced
+    draws (K4 and plain), and every draw each path made on the card by
+    K4's argument key (mode, shape, range, block: recorded by
+    ``record_draws`` around the path's counted steps) with its calls a
+    step and that key's device, call, plain and bound times; each key is
+    held against the plain draw on the card and on the CPU (after its
+    path, or here).
 
 Paths 5, 11, 17, 18, 21 and 22 also print their kernel launches by caller
 (17, 18, 21 and 22 with K3 inside the particle rebalance and its
 ``split_largest``).
 
-After each of the paths 5, 7, 9, 11, 13, 14, 17, 18, 21, 22, 24, 26, 28 and 30, every kernel is held
+After each of the paths 5, 7, 9, 11, 13, 14, 17, 18, 21, 22, 24, 26, 28 and 30, every kernel (K4 at
+each draw key) is held
 against its plain version at each argument shape that path launched it with and no
 earlier check held, with the same times.  K1 (``thomas_solve``: the
 acoustic, MYJ and Noah solves, and vertical diffusion's six fields in one
@@ -163,7 +179,7 @@ checkout of the repository, the script exits non-zero and prints no result.
 
     python3 chip_smoke.py --decomposed
 
-runs only phases 1, 2, 5, 27, 28 and 29, with their kernel holds: the
+runs only phases 1, 2, 5, 27, 28, 29 and 31, with their kernel holds: the
 decomposition on every visible card (up to 4) against the undecomposed
 main path, for a machine of several cards (the strong- and weak-scaling
 ms/step beside phase 5's, the per-rank split, the P2P calls and bytes a
@@ -310,11 +326,12 @@ def _rand_unique_dst(gen, C, L1, L2, drop_frac, device):
 
 
 def _kernel_fns():
-    from wrf_partmc_tpu_torch.ops import place, tridiag
+    from wrf_partmc_tpu_torch.ops import place, threefry, tridiag
 
     return {"thomas_solve": tridiag.thomas_solve,
             "scatter_rows": place.scatter_rows_cuda,
-            "gather_rows": place.gather_rows_cuda}
+            "gather_rows": place.gather_rows_cuda,
+            "threefry_draw": threefry.threefry_draw}
 
 
 def reset_counts():
@@ -577,8 +594,98 @@ def check_gather(gen, shapes):
     return time_gather(x, src, f"{list(x_shape)}->{L2}")
 
 
+# K4's least work, counted from csrc/threefry.cu: the hash is 74 int32
+# operations an element (the counter split, two key adds, 20 rounds of
+# add, rotate and xor, 10 injection adds, the output xor); a block draw's
+# index 11 more (three divisions, three remainders, five multiply-adds);
+# the uniform 2 int32 (shift, or) and 4 float32 (subtract, multiply, add,
+# clamp).  The normal adds 6 float32 and 16 float64 (eight emulated fused
+# multiply-adds) in erfinv, one float64 root where w >= 5, and its log1p
+# either 7 float32 and 28 float64 (the rational, |u^2| below sqrt(2) - 1)
+# or 4 int32, 12 float32 and 20 float64 (the log).  Rates: float32 67e12
+# (FP32_OPS_PER_S), float64 34e12 (NVIDIA's data sheet, outside the tensor
+# cores), int32 33.5e12 (132 SMs x 128 lanes at the 1.98 GHz that gives the
+# float32 figure, one operation a lane and clock: Hopper issues integer
+# adds to its FMA lanes as well, and a first count at 64 int32 lanes an SM
+# put the measured kernel below that bound).  Bound: the larger of the
+# bytes written at 3.35 TB/s and the slowest unit's share of the
+# operations these inputs need (each unit at its peak, all at once).
+INT32_OPS_PER_S = 33.5e12
+FP64_OPS_PER_S = 34e12
+K4_TIMES = {}                # K4 argument key -> its check's result
+
+
+def k4_bound(mode: str, n: int, blocked: bool, u=None):
+    """(ms, "bytes" or "operations") for K4's draw of n elements; ``u`` is
+    the draw's uniform (the normal's branches depend on it)."""
+    import torch
+
+    i32 = n * (74 + (11 if blocked else 0) + (2 if mode != "bits" else 0))
+    f32 = 4 * n if mode != "bits" else 0
+    f64 = 0
+    if mode == "normal":
+        a = (u.double() * u.double())
+        n_small = int((a < 0.41421356237309504880).sum())
+        n_ge5 = int((-torch.log1p(-a) >= 5.0).sum())
+        i32 += 4 * (n - n_small)
+        f32 += 6 * n + 7 * n_small + 12 * (n - n_small)
+        f64 += 16 * n + 28 * n_small + 20 * (n - n_small) + n_ge5
+    t_b = 1e3 * n * (8 if mode == "bits" else 4) / HBM_BYTES_PER_S
+    t_o = 1e3 * max(i32 / INT32_OPS_PER_S, f32 / FP32_OPS_PER_S, f64 / FP64_OPS_PER_S)
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def check_threefry(gen, shapes):
+    """K4 (``threefry_draw``) at one argument key (mode, shape, lo, span,
+    block arguments) under the key of seed 12345: bit for bit against its
+    plain version (``rng.draw_plain``) on the card and against the plain
+    draw on the CPU; device time (a CUDA graph of wrapper calls), call time,
+    the plain version's call time and the bound.  No library call computes
+    this function."""
+    import math
+
+    import torch
+
+    from wrf_partmc_tpu_torch.ops import threefry
+    from wrf_partmc_tpu_torch.utils import rng
+
+    mode, shape, lo, span, blk = shapes
+    k = rng.key(12345)
+    block = None if blk is None else rng.Block(*blk[:6])
+    run = lambda: threefry.threefry_draw(mode, k, shape, "cuda", lo, span, blk)
+    got = run()
+    plain = lambda: rng.draw_plain(mode, k, shape, "cuda", lo, span, block)
+    want = plain()
+    cpu = rng.draw_plain(mode, k, shape, "cpu", lo, span, block)
+    bits = (lambda t: t.view(torch.int32)) if mode != "bits" else (lambda t: t)
+    require(torch.equal(bits(got), bits(want)) and torch.equal(bits(got.cpu()), bits(cpu)),
+            f"K4 {mode} {list(shape)} block {blk}: not bit-equal to the plain draw "
+            f"(card {torch.equal(bits(got), bits(want))}, CPU "
+            f"{torch.equal(bits(got.cpu()), bits(cpu))})")
+    n = math.prod(shape)
+    u = None
+    if mode == "normal":
+        u = rng.draw_plain("uniform", k, shape, "cuda", lo, span, block)
+    del got, want, cpu
+    big = n > 4_000_000
+    res = dict(max_abs_err=0.0, ms=graph_ms(run, calls=20 if big else 100),
+               call_ms=call_ms(run, calls=20 if big else 100),
+               plain_ms=call_ms(plain, calls=3 if big else 20),
+               library_ms=None)         # no PyTorch call draws threefry (torch.rand is Philox)
+    res["bound_ms"], res["bound_by"] = k4_bound(mode, n, blk is not None, u)
+    K4_TIMES[shapes] = res
+    print(f"[kernels] K4 threefry_draw {mode} {list(shape)}"
+          + ("" if blk is None else f" block {list(blk)}")
+          + ("" if mode == "bits" else f" lo {lo!r} span {span!r}")
+          + f": bit-equal to the plain draw on the card and on the CPU; device "
+          f"{res['ms']:.4f} ms, call {res['call_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+          f"library null, bound {res['bound_ms']:.6f} ms ({res['bound_by']}), share "
+          f"{res['bound_ms'] / res['ms']:.3f}")
+    return res
+
+
 CHECKS = {"thomas_solve": check_thomas, "scatter_rows": check_scatter,
-          "gather_rows": check_gather}
+          "gather_rows": check_gather, "threefry_draw": check_threefry}
 CHECKED = {k: set() for k in CHECKS}     # argument shapes already held
 
 
@@ -631,8 +738,16 @@ def phase_kernels(kernels: dict):
     k2 = [hold(kernels, gen, "scatter_rows", ((C, CH, L1), L2))
           for L1, L2 in ((P, F1), (AB, AB))]
     k3 = [hold(kernels, gen, "gather_rows", ((C, CH, L1), P)) for L1 in (AB, P)]
+    # K4: the particle draws' [10, 40, 40, 1280] in each mode (the path
+    # draws uniforms at this shape; bits and normals at smaller ones)
+    from wrf_partmc_tpu_torch.utils import rng
+
+    ranges = {"bits": (0.0, 1.0), "uniform": (0.0, 1.0),
+              "normal": (rng.NORMAL_LO, rng.NORMAL_SPAN)}
+    k4 = [hold(kernels, gen, "threefry_draw", (mode, (10, 40, 40, P), *ranges[mode], None))
+          for mode in ("uniform", "bits", "normal")]
     for name, res, main in (("thomas_solve", k1, 1), ("scatter_rows", k2, 0),
-                            ("gather_rows", k3, 0)):
+                            ("gather_rows", k3, 0), ("threefry_draw", k4, 0)):
         kernels[name].update({k: res[main][k] for k in KEYS})
     torch.cuda.empty_cache()
 
@@ -734,6 +849,7 @@ def drive(model, box: list, n_timed: int):
 def require_launched(kernels: dict, key: str, launches: dict, path: str, steps: int):
     """Every kernel launched on the path; its count is printed with its
     launches a step over the ``steps``."""
+    PATH_LAUNCHES[path] = (dict(launches), steps)
     for name, rec in kernels.items():
         rec[key] = launches[name]
         require(rec[key] > 0, f"{name} was not launched on the {path}")
@@ -755,14 +871,14 @@ def phase_main_path(kernels: dict, n_timed: int = 6):
     # leaves copies of its K2/K3 index arrays (outside the timed steps)
     by_caller, captured, draws = {}, {}, {}
     restore = attribute_launches(by_caller, captured)
-    restore_draws = record_normals(draws)
+    restore_draws = record_draws(draws)
     box, state = [state], None          # drive holds the only reference
     state, warm, dt, launches, shapes = drive(model, box, n_timed)
     restore_draws()
     restore()
     cells = 40 * 40 * 10
     ms = 1e3 * dt / n_timed
-    NORMAL_DRAWS["main path"] = (draws, n_timed + 1, ms)
+    DRAWS["main path"] = (draws, n_timed + 1, ms)
     PATH_MS["main path"] = ms
     alive = int(state.aero.n_alive().sum())
     print(f"[main] warm-up step {1e3 * warm:.3f} ms; {n_timed} timed steps "
@@ -777,6 +893,7 @@ def phase_main_path(kernels: dict, n_timed: int = 6):
     require(alive > 0, "no particle alive")
     require_launched(kernels, "launches", launches, "main path", n_timed + 1)
     print(f"[main] kernel launches by caller: {json.dumps(by_caller)}")
+    draw_split("main path", model, state)
     return shapes, captured
 
 
@@ -879,10 +996,13 @@ def phase_chem_main_path(kernels: dict, n_timed: int = 30):
           f"means {json.dumps(_domain_means(model, state))}")
     # step 0 runs the chemistry macro-step, then steps 1..30, of which
     # step 30 runs it again
-    box, state = [state], None          # drive holds the only reference
+    box, state, draws = [state], None, {}   # drive holds the only reference
+    restore_draws = record_draws(draws)
     state, warm, dt, launches, shapes = drive(model, box, n_timed)
+    restore_draws()
     cells = 40 * 40 * 10
     ms = 1e3 * dt / n_timed
+    DRAWS["chem-on main path"] = (draws, n_timed + 1, ms)
     alive = int(state.aero.n_alive().sum())
     means = _domain_means(model, state)
     print(f"[chem-main] warm-up step (chemistry) {1e3 * warm:.3f} ms; {n_timed} timed "
@@ -897,6 +1017,7 @@ def phase_chem_main_path(kernels: dict, n_timed: int = 30):
     require(alive > 0, "no particle alive")
     require(all(v == v and v >= 0.0 for v in means.values()), f"bad means {means}")
     require_launched(kernels, "launches_chem_on", launches, "chem-on main path", n_timed + 1)
+    state, _ = draw_split("chem-on main path", model, state)
     return model, state, shapes
 
 
@@ -1051,13 +1172,13 @@ def phase_cares_path(kernels: dict, n_timed: int = 20):
           f"{time.perf_counter() - t0:.3f} s, alive {int(state.aero.n_alive().sum())}")
     by_caller, captured, draws = {}, {}, {}
     restore = attribute_launches(by_caller, captured)
-    restore_draws = record_normals(draws)
+    restore_draws = record_draws(draws)
     box, state = [state], None          # drive holds the only reference
     state, warm, dt, launches, shapes = drive(model, box, n_timed)
     restore_draws()
     restore()
     ms = 1e3 * dt / n_timed
-    NORMAL_DRAWS["CARES path"] = (draws, n_timed + 1, ms)
+    DRAWS["CARES path"] = (draws, n_timed + 1, ms)
     alive = int(state.aero.n_alive().sum())
     means = _domain_means(model, state)
     mu_max = float(state.dyn.mu.abs().max())
@@ -1079,6 +1200,7 @@ def phase_cares_path(kernels: dict, n_timed: int = 20):
     print(f"[cares] kernel launches by caller: {json.dumps(by_caller)}")
     for caller, n in by_caller.items():
         require(n > 0, f"CARES path: no kernel launch from {caller}")
+    draw_split("CARES path", model, state)
     return shapes, captured
 
 
@@ -1146,31 +1268,115 @@ def attribute_launches(by_caller: dict, captured: dict, rebalance: bool = False)
     return patch_sites(sites, hook)
 
 
-# per path: ({draw shape: calls}, steps, ms/step) of rng.normal in its run
-NORMAL_DRAWS = {}
+# per path: ({K4 argument key: calls}, steps, ms/step) of the bulk draws
+# (rng.random_bits, uniform, normal) on the card in its run
+DRAWS = {}
+DRAW_SPLITS = {}             # per path: the synced draws, K4 and plain
+PATH_LAUNCHES = {}           # per path: (kernel launches, steps)
 PATH_MS = {}                 # ms/step of the paths later phases compare with
+DRAW_FNS = ("random_bits", "uniform", "normal")
 
 
-def record_normals(draws: dict):
-    """Count the calls of ``rng.normal`` by draw shape in ``draws`` (the
-    particle samples of emission, inflow resampling and initialization).
-    Returns a function that restores the module."""
+def draw_args(name: str, fn, args, kwargs):
+    """(K4's argument key (mode, shape, lo, span, block arguments) as the
+    kernel's wrapper records it, the key, the ``rng.Block``, the device) of
+    the rng draw ``name`` called with ``args``/``kwargs``; None for a draw
+    on another device than a card."""
+    import inspect
+
+    import torch
+
     from wrf_partmc_tpu_torch.utils import rng
 
-    def hook(_, fn, args, kwargs):
-        shape = tuple(args[1])
-        draws[shape] = draws.get(shape, 0) + 1
-        return fn(*args, **kwargs)
-    return patch_sites([(rng, "normal", "normal")], hook)
+    a = inspect.signature(fn).bind(*args, **kwargs)
+    a.apply_defaults()
+    a = a.arguments
+    if torch.device(a["device"]).type != "cuda":
+        return None
+    shape, block = tuple(int(v) for v in a["shape"]), a["block"]
+    lo, span = {"random_bits": (0.0, 1.0), "normal": (rng.NORMAL_LO, rng.NORMAL_SPAN)}.get(
+        name) or rng._lo_span(a["minval"], a["maxval"])
+    mode = "bits" if name == "random_bits" else name
+    return ((mode, shape, float(lo), float(span),
+             None if block is None else tuple(block.kernel_args(shape))), a["k"], block,
+            a["device"])
+
+
+def record_draws(draws: dict, timing: dict | None = None, plain: bool = False):
+    """Count the bulk draws on the card (``rng.random_bits``, ``uniform``,
+    ``normal``; randint, gumbel and categorical draw through them) by K4's
+    argument key in ``draws``.  With ``timing``, each runs between two
+    ``torch.cuda.synchronize()`` and its host time is added to
+    ``timing["ms"]``; with ``plain``, the plain version (``rng.draw_plain``)
+    runs in place of K4.  Returns a function that restores the module."""
+    import torch
+
+    from wrf_partmc_tpu_torch.utils import rng
+
+    def hook(name, fn, args, kwargs):
+        found = draw_args(name, fn, args, kwargs)
+        if found is None:
+            return fn(*args, **kwargs)
+        key, k, block, device = found
+        draws[key] = draws.get(key, 0) + 1
+        mode, shape, lo, span, _ = key
+        call = ((lambda: rng.draw_plain(mode, k, shape, device, lo, span, block)) if plain
+                else (lambda: fn(*args, **kwargs)))
+        if timing is None:
+            return call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        timing["ms"] += 1e3 * (time.perf_counter() - t0)
+        return out
+    return patch_sites([(rng, name, name) for name in DRAW_FNS], hook)
+
+
+def draw_split(path: str, model, state, steps: int = 2, echo: bool = True):
+    """``steps`` steps with every bulk draw synchronized on both sides
+    through K4, then ``steps`` through the plain version called explicitly
+    (the draws as they ran before K4): each run's step ms, draw ms and the
+    draws' share of the step; with ``echo`` printed and kept for phase 31.
+    Returns (state, the two records)."""
+    import torch
+
+    res = {}
+    for how in ("K4", "plain"):
+        timing, draws = {"ms": 0.0}, {}
+        restore = record_draws(draws, timing, plain=how == "plain")
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                state = model(state)
+            torch.cuda.synchronize()
+            step_ms = 1e3 * (time.perf_counter() - t0) / steps
+        finally:
+            restore()
+        res[how] = dict(step_ms=step_ms, draw_ms=timing["ms"] / steps,
+                        share=timing["ms"] / steps / step_ms,
+                        draws=sum(draws.values()) / steps)
+    if echo:
+        DRAW_SPLITS[path] = res
+        print(f"[draws] {path}, {steps} steps each with synced draws: {split_text(res)}")
+    return state, res
+
+
+def split_text(res: dict) -> str:
+    return "; ".join(f"{how} {r['draw_ms']:.3f} of {r['step_ms']:.3f} ms/step "
+                     f"({100 * r['share']:.2f}%, {r['draws']:g} draws a step)"
+                     for how, r in res.items())
 
 
 def phase_normal_cost():
     """What the float32 erfinv of XLA-CPU (``rng.erfinv_xla``, which keeps
     ``rng.normal`` bit-equal to ``jax.random.normal`` on the CPU) costs
-    each path against ``torch.erfinv``: at each draw shape a path made, the
-    call time of ``rng.normal`` and of the same uniform through
-    ``torch.erfinv``, and the difference times the draws a step.  At each
-    shape the card's draw must equal the CPU's bit for bit."""
+    each path against ``torch.erfinv``: at each flat normal draw shape a
+    path made, the call time of ``rng.normal`` (K4, the erfinv inside the
+    kernel) and of K4's uniform through ``torch.erfinv``, and the
+    difference times the draws a step.  At each shape the card's draw must
+    equal the CPU's bit for bit."""
     import math
 
     import torch
@@ -1181,9 +1387,13 @@ def phase_normal_cost():
     lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
     sqrt2 = float(torch.tensor(math.sqrt(2.0), dtype=torch.float32))
     timed = {}
-    for path, (draws, steps, step_ms) in NORMAL_DRAWS.items():
+    for path, (draws, steps, step_ms) in DRAWS.items():
+        normals = {}
+        for (mode, shape, _, _, blk), calls in draws.items():
+            if mode == "normal" and blk is None:
+                normals[shape] = normals.get(shape, 0) + calls
         extra, parts = 0.0, []
-        for shape, calls in sorted(draws.items()):
+        for shape, calls in sorted(normals.items()):
             if shape not in timed:
                 ours = call_ms(lambda: rng.normal(k, shape, "cuda"), 20)
                 torchs = call_ms(lambda: sqrt2 * torch.erfinv(
@@ -1819,14 +2029,14 @@ def phase_options_path(kernels: dict, name: str, n_timed: int = 6, n_split: int 
           f"{time.perf_counter() - t0:.3f} s, alive {int(state.aero.n_alive().sum())}")
     by_caller, draws = {}, {}
     restore = attribute_launches(by_caller, {}, rebalance=True)
-    restore_draws = record_normals(draws)
+    restore_draws = record_draws(draws)
     try:
         box, state = [state], None          # drive holds the only reference
         state, warm, dt, launches, shapes = drive(model, box, n_timed)
     finally:
         restore_draws()
         restore()
-    NORMAL_DRAWS[f"{name} options path"] = (draws, n_timed + 1, 1e3 * dt / n_timed)
+    DRAWS[f"{name} options path"] = (draws, n_timed + 1, 1e3 * dt / n_timed)
     cells = nx * ny * nz
     alive = int(state.aero.n_alive().sum())
     print(f"[{name}] warm-up step {1e3 * warm:.3f} ms; {n_timed} timed steps "
@@ -2750,8 +2960,9 @@ def decomposed_run(nx: int = 40, ny: int = 40, n_timed: int = 6, n_split: int = 
     build_peak = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    by_caller = {}
+    by_caller, draws = {}, {}
     restore = count_callers(by_caller, _path_sites(kind))
+    restore_draws = record_draws(draws)
     state = model(state)
     if save_first is not None:
         ys, xs = mesh.slices(ny, nx)
@@ -2765,6 +2976,7 @@ def decomposed_run(nx: int = 40, ny: int = 40, n_timed: int = 6, n_split: int = 
         state = model(state)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    restore_draws()
     restore()
     counts = halo.read_counts()
     launches, shapes = read_counts()
@@ -2777,6 +2989,8 @@ def decomposed_run(nx: int = 40, ny: int = 40, n_timed: int = 6, n_split: int = 
                                       f"decomposed {kind} rank {mesh.rank}",
                                       extra=((halo, "pad_axis", "*/halo exchanges"),
                                              (halo, "_p2p", "*/P2P")))
+    state, split_draws = draw_split(f"decomposed {kind} rank {mesh.rank}", model, state,
+                                    echo=False)
     dry = dryrun_multichip(n, device="cuda")["collectives"] if kind == "em_uniform" else None
     rep = dict(n=n, mesh=list(mesh.shape), rank=mesh.rank, kind=kind, nx=nx, ny=ny, nz=nz,
                build_s=build_s, build_peak_gib=build_peak, ms=1e3 * dt / n_timed,
@@ -2786,7 +3000,8 @@ def decomposed_run(nx: int = 40, ny: int = 40, n_timed: int = 6, n_split: int = 
                collectives={k: {f: v / n_timed for f, v in rec.items() if f != "max_bytes"}
                             | {"max_bytes": rec["max_bytes"]} for k, rec in counts.items()},
                block=list(state.aero.num.shape), dyn_block=list(state.dyn.theta_p.shape),
-               split=split, dryrun=dry)
+               split=split, draws=split_draws,
+               draw_keys=[[_listify(k), c] for k, c in draws.items()], dryrun=dry)
     if report:
         print("REPORT " + json.dumps(rep), flush=True)
     return rep
@@ -2812,6 +3027,18 @@ def run_decomposed_world(n: int, nx: int, ny: int, **kw) -> list:
     outs = spawn_ranks(n, "cuda", f"decomposed_run({nx}, {ny}, report=True{args})")
     return [json.loads(next(line[7:] for line in out.splitlines()
                             if line.startswith("REPORT "))) for out in outs]
+
+
+def rank_draws(path: str, reps: list) -> None:
+    """Each rank's synced draws (``draw_split``), and rank 0's launches and
+    draws by K4 argument key."""
+    rep = reps[0]
+    PATH_LAUNCHES[path] = (rep["launches"], rep["steps"])
+    DRAWS[path] = ({_tuplify(k): c for k, c in rep["draw_keys"]}, rep["steps"], rep["ms"])
+    for r in reps:
+        DRAW_SPLITS[f"{path}, rank {r['rank']}"] = r["draws"]
+        print(f"[draws] {path}, rank {r['rank']}, 2 steps each with synced draws: "
+              + split_text(r["draws"]))
 
 
 def phase_decomposed_path(kernels: dict):
@@ -2855,6 +3082,7 @@ def phase_decomposed_path(kernels: dict):
                       f"{k} {v:.3f}" for k, v in sorted(top.items(), key=lambda kv: -kv[1]))
                   + f"; inside them the halo exchanges {sp.get('*/halo exchanges', 0.0):.3f}"
                   f" (their P2P and the transport's {sp.get('*/P2P', 0.0):.3f})")
+        rank_draws(f"decomposed {kind} path", reps)
         print(f"[decomposed] {kind}: dryrun_multichip({rep['n']}) OK, collectives "
               + json.dumps(rep["dryrun"]))
         require(all(r["finite"] for r in reps), f"decomposed {kind} path: not finite")
@@ -2987,6 +3215,7 @@ def phase_decomposed_options(kernels: dict):
                       f"{k} {v:.3f}" for k, v in sorted(top.items(), key=lambda kv: -kv[1]))
                   + f"; inside them the halo exchanges {sp.get('*/halo exchanges', 0.0):.3f}"
                   f" (their P2P and the transport's {sp.get('*/P2P', 0.0):.3f})")
+        rank_draws(f"decomposed {label} path", reps)
         require(all(r["finite"] for r in reps), f"decomposed {label}: not finite")
         require(rep["alive"] > 0, f"decomposed {label}: no particle alive")
         require(all(r["collectives"]["all_gather"]["calls"] == 0 for r in reps),
@@ -3112,8 +3341,42 @@ def phase_bench(kernels: dict):
     phase_path_shapes("bench dycore path", kernels, shapes)
 
 
+def phase_draws(kernels: dict):
+    """K4's summary over the paths: its launches a step on each, the synced
+    draws of each path that ``draw_split`` ran (K4 and the plain version),
+    and for each path every draw it made on the card by K4 argument key
+    (mode, shape, lo, span, block) with its calls a step and that key's
+    device, call, plain and bound times.  Every key a path drew is held
+    against the plain draw on the card and on the CPU (here, if no path
+    hold reached it)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    print("[draws] K4 launches a step: " + ", ".join(
+        f"{path} {launches['threefry_draw'] / steps:g}"
+        for path, (launches, steps) in PATH_LAUNCHES.items()))
+    for path, res in DRAW_SPLITS.items():
+        print(f"[draws] {path}: {split_text(res)}")
+    for path, (draws, steps, step_ms) in DRAWS.items():
+        late = [k for k in draws if k not in CHECKED["threefry_draw"]]
+        for key in sorted(late, key=repr):
+            hold(kernels, gen, "threefry_draw", key)
+        per = lambda f: sum(c / steps * K4_TIMES[k][f] for k, c in draws.items())
+        print(f"[draws] {path}: {sum(draws.values()) / steps:g} draws a step at {len(draws)} "
+              f"keys ({len(late)} held here): K4 device {per('ms'):.4f} ms/step, bound "
+              f"{per('bound_ms'):.4f}, plain {per('plain_ms'):.4f}, of the path's "
+              f"{step_ms:.3f} ms/step")
+        for key, calls in sorted(draws.items(), key=repr):
+            t, (mode, shape, lo, span, blk) = K4_TIMES[key], key
+            print(f"[draws]   {mode} {list(shape)}" + ("" if blk is None else f" block {list(blk)}")
+                  + f": {calls / steps:g} a step; device {t['ms']:.4f} ms, call "
+                  f"{t['call_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+                  f"{t['bound_ms']:.6f} ms ({t['bound_by']}), share {t['bound_ms'] / t['ms']:.3f}")
+    torch.cuda.empty_cache()
+
+
 def run_decomposed(kernels: dict):
-    """Phases 5, 27, 28 and 29 with their kernel holds (``--decomposed``)."""
+    """Phases 5, 27, 28, 29 and 31 with their kernel holds (``--decomposed``)."""
     shapes, _ = phase_main_path(kernels)
     _free()
     phase_path_shapes("main path", kernels, shapes)
@@ -3124,10 +3387,11 @@ def run_decomposed(kernels: dict):
     shapes = phase_decomposed_options(kernels)
     _free()
     phase_path_shapes("decomposed option-set and CARES paths", kernels, shapes)
+    phase_draws(kernels)
 
 
 def run_all(kernels: dict):
-    """Phases 3-28 and 30."""
+    """Phases 3-28, 30 and 31."""
     phase_kernels(kernels)
     phase_card_vs_cpu()
     shapes, captured = phase_main_path(kernels)
@@ -3189,6 +3453,7 @@ def run_all(kernels: dict):
     _free()
     phase_path_shapes("decomposed path", kernels, shapes)
     phase_bench(kernels)
+    phase_draws(kernels)
 
 
 def main(argv=None) -> int:
@@ -3215,6 +3480,13 @@ def main(argv=None) -> int:
                             replaces="wrf_partmc_tpu/ops/place.py:125",
                             callers=["rebucket", "coagulation", "split_largest",
                                      "rank-local rebucket"]),
+        "threefry_draw": dict(route="cuda", source="wrf_partmc_tpu_torch/csrc/threefry.cu",
+                              replaces="jax.random threefry2x32 (XLA)",
+                              callers=["rng.random_bits", "rng.uniform", "rng.normal",
+                                       "rng.randint", "rng.gumbel", "rng.categorical",
+                                       "coagulation", "transport", "thinning", "dilution",
+                                       "deposition", "emission", "inflow",
+                                       "sea salt", "block draws"]),
     }
     try:
         phase_card()

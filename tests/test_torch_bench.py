@@ -13,13 +13,15 @@ repository's ``bench.py``.
 - The coupled and CARES builders give bit for bit the model and state of
   ``entry.build`` and ``cares.build_cares_shape`` with ``bench.py``'s
   arguments (chem_dt 300 s with chemistry on, else 60 s; ``n_sources``).
-- One ``--preset tiny`` run on the CPU, in its own process, started when
-  the module starts and read at the end: exit 0, one JSON object on its
+- One ``--preset tiny --device cpu`` run, in its own process, started
+  when the module starts and read at the end: exit 0, one JSON object on its
   last line with ``bench.py``'s keys (read from its source) less
   ``vs_baseline``, plus each worker's ``_peak_gib`` and ``_window_ms``;
   every number finite and positive, ``extra.device`` the CPU.
 - A worker asked for the card on a host without one exits non-zero with
   ``entry.require_device``'s message.
+- A failed worker ends the bench with its stderr tail; only a worker that
+  ran out of device memory lets a sweep go on to its next point.
 """
 
 import ast
@@ -29,6 +31,7 @@ import os
 import signal
 import subprocess
 import sys
+import time
 
 import jax
 import numpy as np
@@ -44,33 +47,50 @@ from wrf_partmc_tpu_torch.ops import tridiag
 from wrf_partmc_tpu_torch.utils.tree import tensor_leaves
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TIMEOUT_S = 300
+# The tiny preset takes about 30 s alone on 8 cores, and took 297.5 s there
+# beside five pytest-xdist workers running the sharded and CARES tests.
+TIMEOUT_S = 900
 
 
 def _start(args):
     env = dict(os.environ, OMP_NUM_THREADS="2")
-    return subprocess.Popen([sys.executable, "-m", "wrf_partmc_tpu_torch.bench", *args],
-                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    p = subprocess.Popen([sys.executable, "-m", "wrf_partmc_tpu_torch.bench", *args],
+                         cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True, start_new_session=True)
+    p.started = time.monotonic()
+    return p
 
 
 def _finish(p):
     """(return code, stdout, stderr); the process group is killed if it
-    outlives ``TIMEOUT_S``."""
-    try:
-        out, err = p.communicate(timeout=TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        os.killpg(p.pid, signal.SIGKILL)
-        out, err = p.communicate()
-        pytest.fail(f"{p.args} outlived {TIMEOUT_S} s; stderr: {err[-2000:]}")
-    return p.returncode, out, err
+    outlives ``TIMEOUT_S``.  Read once; later calls get the same."""
+    if not hasattr(p, "result"):
+        timed_out = False
+        try:
+            out, err = p.communicate(timeout=TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, signal.SIGKILL)
+            out, err = p.communicate()
+            timed_out = True
+        p.result = (p.returncode, out, err, timed_out)
+        p.seconds = time.monotonic() - p.started
+    rc, out, err, timed_out = p.result
+    if timed_out:
+        pytest.fail(f"{p.args} outlived {TIMEOUT_S} s; " + _tails(p))
+    return rc, out, err
+
+
+def _tails(p) -> str:
+    _, out, err, _ = p.result
+    return (f"return code {p.returncode} after {p.seconds:.1f} s; stdout tail: "
+            f"{out[-2000:]}\nstderr tail: {err[-3000:]}")
 
 
 @pytest.fixture(scope="module", autouse=True)
 def runs():
     """The tiny preset and a worker on a missing card, started in the
     background while the builders are compared in this process."""
-    procs = {"tiny": _start(["--preset", "tiny"]),
+    procs = {"tiny": _start(["--preset", "tiny", "--device", "cpu"]),
              "no card": _start(["--worker", "dycore", "--nx", "8", "--ny", "8", "--nz", "4",
                                 "--steps", "1"])}
     yield procs
@@ -200,7 +220,7 @@ WORKER_PREFIXES = ("dycore", "coupled_em_uniform", "coupled_chem_on", "coupled_4
 
 def test_tiny_preset(runs):
     rc, out, err = _finish(runs["tiny"])
-    assert rc == 0, err[-3000:]
+    assert rc == 0, _tails(runs["tiny"])
     res = json.loads(out.strip().splitlines()[-1])
     top, extra = _reference_keys()
     assert "vs_baseline" in top and "cares_shape_grid" in extra
@@ -226,10 +246,11 @@ def test_tiny_preset_progress_lines(runs):
     launches no kernel."""
     rc, out, _ = _finish(runs["tiny"])
     lines = [ln for ln in out.splitlines() if ln.startswith("[bench] ")]
-    assert rc == 0 and len(lines) == 4
+    assert rc == 0 and len(lines) == 4, _tails(runs["tiny"])
     for ln in lines:
         rec = json.loads(ln.split(": ", 1)[1])
-        assert rec["launches"] == {"thomas_solve": 0, "scatter_rows": 0, "gather_rows": 0}
+        assert rec["launches"] == {"thomas_solve": 0, "scatter_rows": 0, "gather_rows": 0,
+                                   "threefry_draw": 0}
 
 
 # --------------------------------------------------------- (d) no card
@@ -260,13 +281,53 @@ def test_bench_imports_no_reference():
     assert not roots & {"jax", "jaxlib", "wrf_partmc_tpu", "bench", "__graft_entry__"}
 
 
-def test_spawn_reports_a_failed_worker(capsys):
-    """A worker that fails gives None, with its return code and stderr tail
-    on a line of its own."""
-    assert bench._spawn("dycore", ["--nx", "nine"], "cpu") is None
-    line = capsys.readouterr().out.strip().splitlines()[-1]
-    assert line.startswith("[bench] dycore --nx nine: failed, return code 2; stderr: ")
-    assert "invalid int value: 'nine'" in line
+def test_spawn_reports_a_failed_worker():
+    """A worker that fails other than by running out of memory raises, with
+    its return code and stderr tail in the message."""
+    with pytest.raises(bench.WorkerFailed) as e:
+        bench._spawn("dycore", ["--nx", "nine"], "cpu")
+    assert str(e.value).startswith("[bench] dycore --nx nine: failed, return code 2; "
+                                   "stderr: ")
+    assert "invalid int value: 'nine'" in str(e.value)
+
+
+def _fake_run(stderr: str, calls: list):
+    def run(cmd, **kw):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 1, "", stderr)
+    return run
+
+
+@pytest.mark.parametrize("mark", bench.OOM_MARKS)
+def test_spawn_out_of_memory_gives_none(monkeypatch, capsys, mark):
+    """Only a worker whose stderr names running out of device memory gives
+    None (a sweep's cue to try its next point), its tail printed."""
+    calls = []
+    monkeypatch.setattr(bench.subprocess, "run", _fake_run(f"torch {mark}: 2 GiB", calls))
+    assert bench._spawn("coupled", ["--nx", "40"], "cuda") is None
+    assert calls and "failed, return code 1" in capsys.readouterr().out
+
+
+def test_main_exits_nonzero_on_a_failed_worker(monkeypatch, capsys):
+    """A failing worker ends the whole run with exit 1 and its stderr tail,
+    and no result line: the sweep does not go on past it."""
+    calls = []
+    monkeypatch.setattr(bench.subprocess, "run",
+                        _fake_run("Traceback ...\nValueError: broken step", calls))
+    assert bench.main(["--preset", "tiny", "--device", "cpu"]) == 1
+    out, err = capsys.readouterr()
+    assert len(calls) == 1 and "--worker" in calls[0] and "dycore" in calls[0]
+    assert "ValueError: broken step" in err and not out.strip()
+
+
+def test_preset_follows_device(monkeypatch):
+    """``--preset tiny`` hands its workers ``--device``, which defaults to
+    the card."""
+    calls = []
+    monkeypatch.setattr(bench.subprocess, "run", _fake_run("ValueError", calls))
+    bench.main(["--preset", "tiny"])
+    bench.main(["--preset", "tiny", "--device", "cpu"])
+    assert [c[c.index("--device") + 1] for c in calls] == ["cuda", "cpu"]
 
 
 def test_time_run_median_and_windows():

@@ -11,7 +11,8 @@ its order without FMA contraction, so it too must be bit-exact, at every
 level bucket (registers for n <= 32, the shared-memory window above, and
 a column longer than one window) and for several strided fields per
 launch.  Outputs are allocated over NaN junk, so a slot a kernel misses
-shows.
+shows.  K4 (threefry draws) must give its plain version's bits in every
+mode, flat and as every (2, 2) block of the em_uniform and CARES draws.
 """
 
 import dataclasses
@@ -19,7 +20,9 @@ import dataclasses
 import pytest
 import torch
 
-from wrf_partmc_tpu_torch.ops import place, tridiag
+from wrf_partmc_tpu_torch.ops import place, threefry, tridiag
+from wrf_partmc_tpu_torch.parallel.mesh import Mesh
+from wrf_partmc_tpu_torch.utils import rng
 
 pytestmark = pytest.mark.gpu
 
@@ -376,3 +379,73 @@ def test_world_of_one_nccl_step(cuda, tmp_path):
     for f in dataclasses.fields(plain.dyn):
         a, b = getattr(outs["cuda"].dyn, f.name), getattr(plain.dyn, f.name)
         assert (a is None and b is None) or torch.equal(a, b), f.name
+
+
+# K4: the draws' float32 range (lo, span) by mode; "gumbel" is the uniform
+# on (tiny, 1) that gumbel and categorical draw
+K4_RANGES = {"bits": (0.0, 1.0), "uniform": (0.0, 1.0),
+             "gumbel": rng._lo_span(float(torch.finfo(torch.float32).tiny), 1.0),
+             "normal": (rng.NORMAL_LO, rng.NORMAL_SPAN)}
+K4_SEEDS = [0, 1, 12345, 2 ** 31 - 1]
+
+
+def _k4(mode, k, shape, device, block=None):
+    """K4's draw and the plain version's, for mode in K4_RANGES."""
+    kernel_mode = "uniform" if mode == "gumbel" else mode
+    lo, span = K4_RANGES[mode]
+    before = threefry.threefry_draw.launches
+    got = threefry.threefry_draw(kernel_mode, k, shape, device, lo, span,
+                                 None if block is None else block.kernel_args(shape))
+    assert threefry.threefry_draw.launches == before + 1
+    return got, rng.draw_plain(kernel_mode, k, shape, device, lo, span, block)
+
+
+def _same_bits(a, b):
+    assert a.shape == b.shape and a.dtype == b.dtype
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    assert torch.equal(a, b)
+
+
+# the particle draws of em_uniform and CARES, their transport arrivals and a
+# ragged 1-D size
+@pytest.mark.parametrize("shape", [(16000, 1280), (31104, 128), (1_000_003,)], ids=str)
+@pytest.mark.parametrize("seed", K4_SEEDS)
+@pytest.mark.parametrize("mode", list(K4_RANGES))
+def test_threefry_kernel_bit_exact(cuda, mode, seed, shape):
+    _junk_then_empty(shape, cuda)
+    _same_bits(*_k4(mode, rng.fold_in(rng.key(seed), 7), shape, cuda))
+
+
+@pytest.mark.parametrize("shape", [(10, 40, 40, 1280), (24, 72, 72, 128), (24, 72, 72)],
+                         ids=str)
+@pytest.mark.parametrize("seed", K4_SEEDS)
+@pytest.mark.parametrize("mode", ["bits", "uniform", "normal"])
+def test_threefry_kernel_blocks_bit_exact(cuda, mode, seed, shape):
+    """Every (2, 2) block of a global draw, through K4, equals the slice of
+    the plain global draw and the plain block draw."""
+    k = rng.key(seed)
+    whole = rng.draw_plain(mode, k, shape, cuda, *K4_RANGES[mode])
+    ny, nx = shape[1:3]
+    for r in range(4):
+        mesh = Mesh((2, 2), r, cuda)
+        b = mesh.draw_block(ny, nx)
+        rows, cols = mesh.slices(ny, nx)
+        got, plain = _k4(mode, k, (shape[0], b.ny_l, b.nx_l, *shape[3:]), cuda, b)
+        _same_bits(got, plain)
+        _same_bits(got, whole[:, rows, cols].contiguous())
+
+
+def test_rng_draws_launch_k4(cuda):
+    """``rng``'s draws on the card go through K4, one launch each, and give
+    the CPU's draws; randint's modulo stays in torch."""
+    k, shape = rng.key(3), (40, 33)
+    calls = {"random_bits": lambda d: rng.random_bits(k, shape, d),
+             "uniform": lambda d: rng.uniform(k, shape, d, -2.0, 5.0),
+             "normal": lambda d: rng.normal(k, shape, d),
+             "randint": lambda d: rng.randint(k, shape, d, -7, 1000)}
+    for name, draw in calls.items():
+        before = threefry.threefry_draw.launches
+        got = draw(cuda)
+        assert threefry.threefry_draw.launches == before + (2 if name == "randint" else 1)
+        _same_bits(got.cpu(), draw("cpu"))

@@ -301,18 +301,38 @@ def test_block_draw_past_2_32():
     np.testing.assert_array_equal(got.reshape(-1).numpy(), (y0 ^ y1).numpy())
 
 
-def test_launcher_exit_codes_and_time_limit():
-    """The launcher sets WPMC_* for every rank, returns the first failing
-    rank's code and kills every rank at its time limit (124)."""
+def test_launcher_exit_codes_and_time_limit(tmp_path):
+    """The launcher sets WPMC_* for every rank, returns the code of the rank
+    that failed first (3: rank 1 exits only once rank 0 has printed and
+    written its file, and rank 0 then sleeps until the launcher kills it),
+    and kills every rank at its time limit (124)."""
+    flag = tmp_path / "rank0"
     cmd = [sys.executable, "-m", "wrf_partmc_tpu_torch.parallel.launch", "-n", "3",
            "--timeout", "60", "--", sys.executable, "-c",
-           "import os, sys; r = int(os.environ['WPMC_PROC_ID']); "
+           "import os, sys, time; r = int(os.environ['WPMC_PROC_ID']); "
            "assert os.environ['WPMC_NUM_PROCS'] == '3' and os.environ['WPMC_COORDINATOR']; "
-           "print('hello', r); sys.exit(3 if r == 1 else 0)"]
+           f"flag = {str(flag)!r}\n"
+           "if r == 0:\n"
+           "    print('hello', r, flush=True); open(flag, 'w').close(); time.sleep(60)\n"
+           "elif r == 1:\n"
+           "    while not os.path.exists(flag): time.sleep(0.01)\n"
+           "    sys.exit(3)"]
     res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=120)
-    assert res.returncode == 3 and "[rank 0] hello 0" in res.stdout
+    assert res.returncode == 3, res.stdout + res.stderr
+    assert "[rank 0] hello 0" in res.stdout
     slow = spawn(2, [sys.executable, "-c", "import time; time.sleep(60)"], timeout_s=2.0)
-    assert [c for c, _ in slow] == [124, 124]
+    assert [c for c, _ in slow] == [124, 124] and slow.cause is None and slow.code == 124
+
+
+def test_launcher_reports_the_rank_that_failed_first():
+    """Rank 1 fails with 3 while rank 0 still runs: rank 0 is killed and
+    held as -9, and the run's code is rank 1's, not the killed rank's."""
+    code = ("import os, sys, time\n"
+            "if os.environ['WPMC_PROC_ID'] == '1':\n"
+            "    sys.exit(3)\n"
+            "time.sleep(60)")
+    res = spawn(2, [sys.executable, "-c", code], timeout_s=60.0)
+    assert res.cause == 1 and [c for c, _ in res] == [-9, 3] and res.code == 3
 
 
 def test_mesh_device_must_match_backend():

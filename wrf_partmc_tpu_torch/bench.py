@@ -38,12 +38,17 @@ Deliberate differences from ``bench.py``:
   set, which cannot be reset, so its steps figure includes the build),
   and ``<prefix>_window_ms``, each timed window's ms/step.
 
-``--preset full`` runs every worker on ``cuda``; a worker that finds no
-card raises (``entry.require_device``).  ``--preset tiny`` is the smoke
-preset on the CPU (dycore 32x32x8, coupled 12x12x4 at 32 per cell, 5 steps,
-no CARES): it passes ``--device cpu`` to its workers.  Every worker also
-prints, on an earlier line of the main process, its own result with the
-kernels' launches over its windows.
+Both presets run every worker on ``--device`` (default ``cuda``); a
+worker that finds no card raises (``entry.require_device``).  ``--preset
+tiny`` is the smoke preset (dycore 32x32x8, coupled 12x12x4 at 32 per
+cell, 5 steps, no CARES); on a host without a card it runs with
+``--device cpu``.  Every worker also prints, on an earlier line of the
+main process, its own result with the kernels' launches over its windows.
+
+A sweep moves to its next point only when the worker's stderr says that it
+ran out of device memory (``torch.OutOfMemoryError``, "CUDA out of
+memory"); any other failure of a worker (an exception, no result line, its
+time limit) ends the run with exit code 1 and that worker's stderr tail.
 """
 
 from __future__ import annotations
@@ -123,10 +128,10 @@ def _peak_gib(device) -> float:
 
 
 def _kernels() -> dict:
-    from .ops import place, tridiag
+    from .ops import place, threefry, tridiag
 
     return {"thomas_solve": tridiag.thomas_solve, "scatter_rows": place.scatter_rows_cuda,
-            "gather_rows": place.gather_rows_cuda}
+            "gather_rows": place.gather_rows_cuda, "threefry_draw": threefry.threefry_draw}
 
 
 class _Meter:
@@ -239,10 +244,19 @@ def _tail(text: str, n: int = 20) -> str:
     return " | ".join(text.strip().splitlines()[-n:])
 
 
+class WorkerFailed(RuntimeError):
+    """A worker failed other than by running out of device memory."""
+
+
+OOM_MARKS = ("OutOfMemoryError", "CUDA out of memory")
+
+
 def _spawn(worker, extra, device, timeout=1200, root=ROOT):
-    """Run one measurement in a fresh process from the checkout at ``root``;
-    return its parsed JSON, or None (its return code and the tail of its
-    stderr printed) when it fails or outlives ``timeout`` s."""
+    """Run one measurement in a fresh process from the checkout at ``root``
+    and return its parsed JSON.  A worker whose stderr names running out
+    of device memory gives None (its return code and stderr tail printed),
+    so that a sweep can try its next point; any other failure, or
+    outliving ``timeout`` s, raises :class:`WorkerFailed` with the tail."""
     cmd = [sys.executable, "-m", "wrf_partmc_tpu_torch.bench", "--worker", worker,
            "--device", device, *extra]
     label = f"[bench] {worker} {' '.join(extra)}"
@@ -250,8 +264,7 @@ def _spawn(worker, extra, device, timeout=1200, root=ROOT):
         p = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, cwd=root)
     except subprocess.TimeoutExpired as e:
         err = e.stderr.decode() if isinstance(e.stderr, bytes) else (e.stderr or "")
-        print(f"{label}: killed after {timeout} s; stderr: {_tail(err)}", flush=True)
-        return None
+        raise WorkerFailed(f"{label}: killed after {timeout} s; stderr: {_tail(err)}")
     if p.returncode == 0:
         for line in reversed(p.stdout.strip().splitlines()):
             if line.startswith("{"):
@@ -261,9 +274,11 @@ def _spawn(worker, extra, device, timeout=1200, root=ROOT):
                     continue
                 print(f"{label}: {line}", flush=True)
                 return res
-    print(f"{label}: failed, return code {p.returncode}; stderr: {_tail(p.stderr)}",
-          flush=True)
-    return None
+    msg = f"{label}: failed, return code {p.returncode}; stderr: {_tail(p.stderr)}"
+    if p.returncode != 0 and any(m in p.stderr for m in OOM_MARKS):
+        print(msg, flush=True)
+        return None
+    raise WorkerFailed(msg)
 
 
 def _args(**kw) -> list:
@@ -291,15 +306,23 @@ def main(argv=None):
 
     if args.worker:
         print(json.dumps(WORKERS[args.worker](args)))
-        return
+        return 0
+    try:
+        _sweep(args)
+    except WorkerFailed as e:
+        print(f"[bench] {e}", file=sys.stderr, flush=True)
+        return 1
+    return 0
 
+
+def _sweep(args) -> None:
+    """The preset's points, each in its own worker; prints the result line."""
+    device = args.device
     if args.preset == "tiny":
-        device = "cpu"
         dyc_dims = (32, 32, 8)
         cpl = (12, 12, 4, 32, 96)
         n_dyc, n_cpl = 5, 5
     else:
-        device = "cuda"
         dyc_dims = (128, 128, 40)
         cpl = (40, 40, 10, 1000, 1280)   # em_uniform reference problem
         n_dyc, n_cpl = 10, 10
@@ -308,7 +331,7 @@ def main(argv=None):
     r = _spawn("dycore", _args(nx=dyc_dims[0], ny=dyc_dims[1], nz=dyc_dims[2],
                                steps=n_dyc), device)
     if r is None:
-        raise RuntimeError("dycore benchmark failed")
+        raise WorkerFailed("the dycore point ran out of device memory")
     t_d, dev = r["t"], r["device"]
     gp = dyc_dims[0] * dyc_dims[1] * dyc_dims[2]
     gps = gp * n_dyc / t_d
@@ -326,7 +349,7 @@ def main(argv=None):
             n_part = n_p
             break
     if rc is None:
-        raise RuntimeError("all coupled sweep points failed")
+        raise WorkerFailed("every coupled sweep point ran out of device memory")
     t_c = rc["t"]
     cells = nx * ny * nz
     cell_steps = cells * n_cpl / t_c
@@ -415,4 +438,4 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -31,11 +31,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     "wpt_thomas_fields_f32": [_P, _P, _P, _P, _P],
     "wpt_empty_kernel": [_P],
     "wpt_scatter_rows_f32": [_P, _P, _P, _LL, _I, _I, _I, _P],
     "wpt_gather_rows_f32": [_P, _P, _P, _LL, _I, _I, _I, _P],
+    "wpt_threefry_draw": [_P, _LL, _LL, _LL, _I, _F, _F, _I, *[_LL] * 7, _P],
 }
 
 _lib = None

@@ -7,8 +7,9 @@ Each process gets ``WPMC_COORDINATOR`` (a free loopback port),
 ``WPMC_NUM_PROCS`` and ``WPMC_PROC_ID``; the script calls
 ``parallel.distributed.init_from_env(device)``.  Ranks' output goes to
 this process's standard output, prefixed ``[rank r]``.  When one rank
-fails or the time limit passes, every rank is killed; the exit code is the
-first nonzero code of the ranks (124 on the time limit).
+fails or the time limit passes, every rank still running is killed; the
+exit code is the code of the rank that failed first in time (124 on the
+time limit), never that of a rank the launcher killed.
 """
 
 from __future__ import annotations
@@ -29,11 +30,27 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+class Ranks(list):
+    """``[(exit code, output)]`` by rank, and ``cause``: the rank whose own
+    nonzero exit ended the run (None if every rank exited 0 or the time
+    limit ended it).  Ranks killed after that exit hold -9."""
+
+    cause: int | None = None
+
+    @property
+    def code(self) -> int:
+        """The run's exit code: the cause's, else the first nonzero (124 on
+        the time limit), else 0."""
+        if self.cause is not None:
+            return self[self.cause][0]
+        return next((c for c, _ in self if c != 0), 0)
+
+
 def spawn(n: int, argv: list, timeout_s: float = 600.0, env: dict | None = None,
-          cwd: str | None = None) -> list:
+          cwd: str | None = None) -> Ranks:
     """Run ``argv`` as ranks 0..n-1 and wait for all of them.  Returns
-    ``[(exit code, output)]`` by rank; on the time limit (code 124) or the
-    first failure every rank still running is killed, so none is left."""
+    :class:`Ranks`; on the time limit (code 124) or the first failure every
+    rank still running is killed, so none is left."""
     base = dict(os.environ if env is None else env)
     base.update(WPMC_COORDINATOR=f"127.0.0.1:{free_port()}", WPMC_NUM_PROCS=str(n))
     logs = [tempfile.TemporaryFile(mode="w+") for _ in range(n)]
@@ -42,13 +59,16 @@ def spawn(n: int, argv: list, timeout_s: float = 600.0, env: dict | None = None,
              for r in range(n)]
     deadline = time.monotonic() + timeout_s
     codes = [None] * n
+    out = Ranks()
     try:
         while None in codes:
             for r, p in enumerate(procs):
                 if codes[r] is None:
                     codes[r] = p.poll()
-            if any(c not in (None, 0) for c in codes) or time.monotonic() > deadline:
-                timed_out = None in codes and time.monotonic() > deadline
+                    if codes[r] not in (None, 0) and out.cause is None:
+                        out.cause = r
+            if out.cause is not None or time.monotonic() > deadline:
+                timed_out = out.cause is None
                 for r, p in enumerate(procs):
                     if codes[r] is None:
                         p.kill()
@@ -61,7 +81,6 @@ def spawn(n: int, argv: list, timeout_s: float = 600.0, env: dict | None = None,
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    out = []
     for r, log in enumerate(logs):
         log.seek(0)
         out.append((codes[r], log.read()))
@@ -82,7 +101,7 @@ def main(argv=None) -> int:
     for r, (_, text) in enumerate(results):
         for line in text.splitlines():
             print(f"[rank {r}] {line}")
-    return next((c for c, _ in results if c != 0), 0)
+    return results.code
 
 
 if __name__ == "__main__":

@@ -37,9 +37,13 @@ def main(argv=None) -> int:
         dst = os.path.join(root, "wrf_partmc_tpu_torch", "bench.py")
         if not os.path.exists(dst) or not os.path.samefile(dst, bench.__file__):
             shutil.copyfile(bench.__file__, dst)
-        r = bench._spawn("coupled", bench._args(nx=40, ny=40, nz=10, steps=args.steps,
-                                                n_part=1000, cap=1280), args.device,
-                         root=root)
+        try:
+            r = bench._spawn("coupled", bench._args(nx=40, ny=40, nz=10, steps=args.steps,
+                                                    n_part=1000, cap=1280), args.device,
+                             root=root)
+        except bench.WorkerFailed as e:
+            print(e, flush=True)
+            r = None
         if r is None:
             worst = 1
             continue

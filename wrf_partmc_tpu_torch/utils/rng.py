@@ -7,10 +7,13 @@ same numbers as the JAX package from the same key.
 
 A key is a :class:`Key`, a pair of Python ints ``(k0, k1)``, each a
 uint32 value.  Key arithmetic (``key``, ``fold_in``, ``split``) runs on the host in Python
-integers and never touches the device; bulk draws (``random_bits`` and the
-samplers built on it) run on the device of the caller's choosing, with the
+integers and never touches the device.  Bulk draws (``random_bits``,
+``uniform``, ``normal`` and the samplers built on them) run on the device
+of the caller's choosing: on a CUDA device one launch of the hand-written
+kernel K4 (``ops/threefry.py``, ``csrc/threefry.cu``), which raises if it
+cannot run; on the CPU the plain version, :func:`draw_plain`, with the
 uint32 words carried in int64 tensors and masked with ``& 0xFFFFFFFF``
-after every add, so the same code runs on CPU and CUDA.
+after every add.  The two give the same bits.
 
 Every stochastic site derives its key from (base_seed, step, substream-tag),
 exactly as ``wrf_partmc_tpu/utils/rng.py`` does.
@@ -29,6 +32,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ..ops import threefry
 
 STREAM_INIT = 0
 STREAM_COAG = 1
@@ -62,14 +67,22 @@ class Block:
     ny_l: int
     nx_l: int
 
-    def flat_index(self, shape, device) -> torch.Tensor:
-        """int64 global row-major indices of the block draw ``shape``
-        (``(n0, ny_l, nx_l, *trail)``) within the global draw."""
+    def kernel_args(self, shape) -> tuple:
+        """K4's block arguments ``(ny, nx, iy0, ix0, ny_l, nx_l, trail)`` for
+        the block draw ``shape`` (``(n0, ny_l, nx_l, *trail)``); the kernel
+        hashes the same indices as :meth:`flat_index`."""
         shape = tuple(shape)
         if len(shape) < 3 or shape[1:3] != (self.ny_l, self.nx_l):
             raise ValueError(f"block draw of shape {shape}: axes 1, 2 must be "
                              f"({self.ny_l}, {self.nx_l})")
-        trail = math.prod(shape[3:])
+        return (self.ny, self.nx, self.iy0, self.ix0, self.ny_l, self.nx_l,
+                math.prod(shape[3:]))
+
+    def flat_index(self, shape, device) -> torch.Tensor:
+        """int64 global row-major indices of the block draw ``shape``
+        (``(n0, ny_l, nx_l, *trail)``) within the global draw."""
+        shape = tuple(shape)
+        trail = self.kernel_args(shape)[-1]
         ar = lambda a, n: torch.arange(a, a + n, dtype=torch.int64, device=device)
         cell = ((ar(0, shape[0]).reshape(-1, 1, 1) * self.ny
                  + ar(self.iy0, self.ny_l).reshape(1, -1, 1)) * self.nx
@@ -128,11 +141,12 @@ def name_seed(name: str) -> int:
     return int.from_bytes(hashlib.sha256(name.encode()).digest()[:4], "little") & 0x7FFFFFFF
 
 
-def random_bits(k: Key, shape, device, block: Block | None = None) -> torch.Tensor:
+def random_bits_plain(k: Key, shape, device, block: Block | None = None) -> torch.Tensor:
     """32 random bits per element (int64 tensor of uint32 values): the
     element with row-major index n hashes the counter pair (n >> 32,
     n & 0xFFFFFFFF), and the two output words are xor-ed.  With ``block``,
-    ``shape`` is the block's and n its elements' global index."""
+    ``shape`` is the block's and n its elements' global index.  The plain
+    version, on any device."""
     shape = tuple(shape)
     if block is None:
         idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
@@ -149,13 +163,11 @@ def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
     return fb.view(torch.float32) - 1.0
 
 
-def uniform(k: Key, shape, device, minval: float = 0.0,
-            maxval: float = 1.0, block: Block | None = None) -> torch.Tensor:
-    """``jax.random.uniform`` in float32 (``block``: see :func:`random_bits`)."""
+def _lo_span(minval: float, maxval: float) -> tuple:
+    """``jax.random.uniform``'s float32 range: (lo, maxval - lo), each
+    rounded to float32."""
     lo = np.float32(minval)
-    span = float(np.float32(np.float32(maxval) - lo))
-    f = _bits_to_unit(random_bits(k, shape, device, block))
-    return torch.clamp(f * span + float(lo), min=float(lo))
+    return float(lo), float(np.float32(np.float32(maxval) - lo))
 
 
 def _fma(a, b, c) -> torch.Tensor:
@@ -252,13 +264,56 @@ def erfinv_xla(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.abs(x) == 1.0, x * float("inf"), p * x)
 
 
+# normal's uniform on (nextafter(-1, 0), 1) and the float32 sqrt(2)
+NORMAL_LO, NORMAL_SPAN = _lo_span(float(np.nextafter(np.float32(-1.0), np.float32(0.0))), 1.0)
+_SQRT2 = float(np.float32(np.sqrt(2.0)))
+
+
+def draw_plain(mode: str, k: Key, shape, device, lo: float = 0.0, span: float = 1.0,
+               block: Block | None = None) -> torch.Tensor:
+    """K4's plain version, on any device: :func:`random_bits_plain`'s bits
+    (``"bits"``); their float32 uniform ``clamp(f * span + lo, min=lo)``
+    (``"uniform"``); or sqrt(2) times :func:`erfinv_xla` of that uniform
+    (``"normal"``, with ``NORMAL_LO``/``NORMAL_SPAN``)."""
+    bits = random_bits_plain(k, shape, device, block)
+    if mode == "bits":
+        return bits
+    u = torch.clamp(_bits_to_unit(bits) * span + lo, min=lo)
+    if mode == "uniform":
+        return u
+    if mode != "normal":
+        raise ValueError(f"draw_plain: unknown mode {mode!r}")
+    return _SQRT2 * erfinv_xla(u)
+
+
+def _draw(mode: str, k: Key, shape, device, lo: float = 0.0, span: float = 1.0,
+          block: Block | None = None) -> torch.Tensor:
+    """A CUDA device launches K4 (or raises); any other takes the plain
+    version."""
+    if torch.device(device).type == "cuda":
+        return threefry.threefry_draw(mode, k, shape, device, lo, span,
+                                      None if block is None else block.kernel_args(shape))
+    return draw_plain(mode, k, shape, device, lo, span, block)
+
+
+def random_bits(k: Key, shape, device, block: Block | None = None) -> torch.Tensor:
+    """32 random bits per element as :func:`random_bits_plain` draws them
+    (K4 on a CUDA device)."""
+    return _draw("bits", k, shape, device, block=block)
+
+
+def uniform(k: Key, shape, device, minval: float = 0.0,
+            maxval: float = 1.0, block: Block | None = None) -> torch.Tensor:
+    """``jax.random.uniform`` in float32 (``block``: see :func:`random_bits_plain`)."""
+    return _draw("uniform", k, shape, device, *_lo_span(minval, maxval), block)
+
+
 def normal(k: Key, shape, device, block: Block | None = None) -> torch.Tensor:
     """``jax.random.normal`` in float32: sqrt(2) erfinv(u), u uniform on
     (nextafter(-1, 0), 1), with XLA-CPU's erfinv (:func:`erfinv_xla`), so the
     draws equal the JAX package's bit for bit on the CPU."""
-    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = uniform(k, shape, device, lo, 1.0, block)
-    return float(np.float32(np.sqrt(2.0))) * erfinv_xla(u)
+    return _draw("normal", k, shape, device, NORMAL_LO, NORMAL_SPAN, block)
+
 
 
 def gumbel(k: Key, shape, device, block: Block | None = None) -> torch.Tensor:
@@ -287,7 +342,7 @@ def randint(k: Key, shape, device, minval: int, maxval: int,
             block: Block | None = None) -> torch.Tensor:
     """``jax.random.randint(k, shape, minval, maxval)`` for int32 results
     (int64 tensor): two 32-bit draws reduced modulo the span, as jax does
-    (``block``: see :func:`random_bits`)."""
+    (``block``: see :func:`random_bits_plain`)."""
     k1, k2 = split(k)
     span = (maxval - minval) & _M if maxval > minval else 1
     mult = (2 ** 16) % span
