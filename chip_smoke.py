@@ -19,6 +19,12 @@ Phases, each printed on its own line and each fatal on failure:
    the particle draws' [10, 40, 40, 1280], bit for bit against its plain
    version on the card and on the CPU, timed like K1 (its bound: the bytes
    it writes, or its int32, float32 and float64 operations at their peaks);
+   K5 (``mie_fit_bulk``, the CARES step's aerosol optics) at the CARES
+   shape's [124416, 128] slots and four bands on random populations of the
+   path's sizes and indices, each sum within 2e-5 of its cell's extinction
+   sum (``k5_hold``), timed like K1, its library call the plain version's
+   [N, 60] @ [60, 45] ``torch.matmul`` alone and its bound the bytes or
+   its float32 multiply-adds (``k5_bound``);
    The kernel times come from two methods: K1's is device time per launch
    from a CUDA graph of 100 wrapper calls replayed between two events (the
    replays read the same inputs, so below the 50 MB L2 they come from L2:
@@ -47,11 +53,17 @@ Phases, each printed on its own line and each fatal on failure:
    ``n_sources=38``, chemistry off, with every kernel's launch count;
 10. card against CPU, the CARES shape: one step at 12x10x8 (open
     boundaries, MYJ, Morrison, Grell, correlated-k radiation with the
-    aerosol optics, Noah, chemistry on) on ``cuda`` and on ``cpu``;
+    aerosol optics, Noah, chemistry on) on ``cuda`` and on ``cpu``, K5
+    launched once on the card and held at its shape;
 11. the CARES path: 72x72x24, 100 particles per cell (capacity 128),
     dt 30 s, chem_dt 300 s: a warm-up step (step 0, chemistry) and 20
     timed steps (two chemistry macro-steps), with every kernel's launch
-    count, overall and per caller;
+    count, overall and per caller (K5 in the optics); then the synced
+    draws, the synced optics (``optics_split``: two steps with the optics
+    and its sums between synchronizes through K5, two through the plain
+    version, with the optics' own peak memory; K5 held on the path's own
+    population) and a synced split of every section over one chemistry
+    cadence, 10 steps (``synced_split`` with ``cares_split_sites``);
 12. card against CPU, the diagnostics: ``diagnostics.process`` (advanced
     on, 100 bins) at 12x12x4 with one cell emptied;
 13. the ideal cases: each of ``run.CASES`` built by ``run.build_model`` on
@@ -120,7 +132,8 @@ Phases, each printed on its own line and each fatal on failure:
     and of the CARES shape at 12x10x8 (``build_cares_shape(mesh=...)``),
     compared as phases 4, 16 and 10; with more cards visible (up to 4),
     the same over ``factor_2d(n)`` ranks (``parallel.launch``), each
-    rank's block compared.  Each card rank's block of every dycore field
+    rank's block compared (each CARES card rank launched K5 once, held at
+    its block's shape).  Each card rank's block of every dycore field
     is then held against the same block of the undecomposed step on the
     card (bit-equal, or within 1e-4 of the field's scale, printed), and
     no step gathers a field;
@@ -147,7 +160,8 @@ Phases, each printed on its own line and each fatal on failure:
     chemistry on, at 1000 with 40 classes, the CARES shape at 72x72x24),
     its lines printed: exit 0, the first point of every sweep, every
     number finite and positive, the card and its power limit named, each
-    worker's kernels launched; then the dycore worker's model built here
+    worker's kernels launched (K5 in the CARES worker, at phase 11's
+    shape); then the dycore worker's model built here
     and stepped twice, K1's launches counted and K1 held at its shapes;
 31. the draws: K4's launches a step on every path, each path's synced
     draws (K4 and plain), and every draw each path made on the card by
@@ -196,7 +210,7 @@ step and the peak memory a card), then
     the halo exchanges timed inside; the CARES strong run's dycore blocks
     after one step against the one-card step's.  Every kernel is then
     held at the shapes these paths launched (K1 on the blocks' columns,
-    K2 and K3 at the rank-local shapes).
+    K2 and K3 at the rank-local shapes, K5 at the CARES blocks' shapes).
 """
 
 from __future__ import annotations
@@ -211,6 +225,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()       # reset by main; the path lines print the time since
 
 
 class SmokeFailure(RuntimeError):
@@ -326,12 +341,18 @@ def _rand_unique_dst(gen, C, L1, L2, drop_frac, device):
 
 
 def _kernel_fns():
-    from wrf_partmc_tpu_torch.ops import place, threefry, tridiag
+    from wrf_partmc_tpu_torch.ops import mie_fit, place, threefry, tridiag
 
     return {"thomas_solve": tridiag.thomas_solve,
             "scatter_rows": place.scatter_rows_cuda,
             "gather_rows": place.gather_rows_cuda,
-            "threefry_draw": threefry.threefry_draw}
+            "threefry_draw": threefry.threefry_draw,
+            "mie_fit_bulk": mie_fit.mie_fit_bulk}
+
+
+# kernels that only the paths with the aerosol optics launch (CARES and its
+# blocks): K5
+OPTICS_KERNELS = ("mie_fit_bulk",)
 
 
 def reset_counts():
@@ -684,8 +705,112 @@ def check_threefry(gen, shapes):
     return res
 
 
+# K5's least work: each live slot takes the 60 x 45 multiply-adds of the
+# basis-weighted coefficients and, per band, 3 x 60 for the contraction and
+# 58 for the Chebyshev recurrence; float32 multiply-adds at half the
+# FP32_OPS_PER_S rate (67e12 counts a multiply-add as two operations).
+# Bytes: d, n, k and the number read once, the [3, W, C] sums written once.
+FMA_PER_S = FP32_OPS_PER_S / 2
+K5_TOL = dict(rtol=2e-5, floor=1e-6)    # of the cell's extinction sum (k5_hold)
+K5_CELL_AREA = 4000.0 * 4000.0          # the CARES cell's [m2]: tau = sum / area
+
+
+def k5_bound(C: int, P: int, W: int, live: int):
+    """(ms, "bytes" or "operations") for K5 on [C, P] slots of which
+    ``live`` carry a number, at W bands."""
+    t_b = 1e3 * (16.0 * C * P + 12.0 * W * C) / HBM_BYTES_PER_S
+    t_o = 1e3 * live * (60 * 45 + W * (3 * 60 + 58)) / FMA_PER_S
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def k5_inputs(gen, C: int, P: int):
+    """diam, n, k, live number [C, P] on the card: diameters 1 nm to 10 um,
+    n 1.33-1.82 and k 0 (30%) or 1e-3 to 0.74 (the port's species
+    indices), 20% dead slots, the first cell empty."""
+    import torch
+
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand((C, P), generator=gen, device="cuda")
+    coin = lambda p: torch.rand((C, P), generator=gen, device="cuda") < p
+    diam, n = 10.0 ** u(-9.0, -5.0), u(1.33, 1.82)
+    k = torch.where(coin(0.3), 0.0, 10.0 ** u(-3.0, -0.13))
+    num = torch.where(coin(0.8), u(1e6, 1e8), 0.0)
+    num[0] = 0.0
+    return diam, n, k, num
+
+
+def k5_fields(sums):
+    """(tauaer of a CARES cell, waer, gaer) from [3, W, C] sums, in float64."""
+    s = sums.double()
+    ext = s[0] + s[1]
+    return (ext / K5_CELL_AREA, s[0] / ext.clamp(min=1e-30), s[2] / s[0].clamp(min=1e-30))
+
+
+def k5_hold(tag: str, got, want) -> float:
+    """K5's [3, W, C] sums against the plain version's: each sum within
+    K5_TOL's rtol of its cell's extinction sum (c_sca + c_abs) num, with a
+    floor of K5_TOL's floor of the largest, and so tauaer at K5_TOL.  Not
+    of itself: q_sca = q_ext - q_abs cancels for small absorbing particles,
+    so the last ulps of q_ext move c_sca and c_abs by a share of c_ext.
+    This bounds waer's error by about twice the rtol.  Prints the largest
+    errors of tauaer, waer and gaer and returns the largest of the three."""
+    g, w = got.double(), want.double()
+    ext = w[0] + w[1]
+    lim = K5_TOL["rtol"] * ext + K5_TOL["floor"] * float(ext.max())
+    for q, name in enumerate(("c_sca num", "c_abs num", "c_sca g num")):
+        err = (g[q] - w[q]).abs()
+        require(bool((err <= lim).all()), f"{tag}: the sum of {name} off by "
+                f"{float(err.max()):.3e} (worst share of its bound "
+                f"{float((err / lim.clamp(min=1e-300)).max()):.3f})")
+    errs = {name: float((a - b).abs().max())
+            for name, a, b in zip(("tauaer", "waer", "gaer"), k5_fields(got), k5_fields(want))}
+    print(f"[kernels] {tag}: max abs err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    return max(errs.values())
+
+
+def check_mie_fit(gen, shapes):
+    """K5 (``mie_fit_bulk``) at (cells, slots, wavelengths) on the inputs of
+    ``k5_inputs``: its sums against the plain version's
+    (``optics.mie_fit_sums_plain``) by ``k5_hold``; device time (a CUDA graph of
+    wrapper calls), call time, the plain version's call time, the library
+    call's (the plain version's [N, 60] @ [60, 45] ``torch.matmul`` alone,
+    a part of the function) and the bound."""
+    import torch
+
+    from wrf_partmc_tpu_torch.models.partmc import mie, optics
+    from wrf_partmc_tpu_torch.ops import mie_fit
+
+    C, P, wl = shapes
+    W = len(wl)
+    diam, n, k, num = k5_inputs(gen, C, P)
+    coeffs = mie._fit_coeffs(diam.device)
+    run = lambda: mie_fit.mie_fit_bulk(diam, n, k, num, coeffs, wl)
+    plain = lambda: optics.mie_fit_sums_plain(diam, n, k, num, wl)
+    got = run()
+    torch.cuda.synchronize()
+    err = k5_hold(f"K5 [{C},{P}] x {W} bands", got, plain())
+    require(bool((got[:, :, 0] == 0.0).all()), f"K5 [{C},{P}]: the empty cell is not 0")
+    del got
+    big = C * P > 4_000_000
+    res = dict(max_abs_err=err, ms=graph_ms(run, calls=10 if big else 100),
+               call_ms=call_ms(run, calls=10 if big else 100),
+               plain_ms=call_ms(plain, calls=2 if big else 10))
+    T = torch.randn((C * P, mie._FIT_J), generator=gen, device="cuda")
+    res["library_ms"] = cuda_ms(lambda: T @ coeffs, reps=5 if big else 10)
+    del T
+    res["bound_ms"], res["bound_by"] = k5_bound(C, P, W, int((num != 0).sum()))
+    print(f"[kernels] K5 mie_fit_bulk [{C},{P}] x {W} bands: sums within "
+          f"{K5_TOL['rtol']:g} of the cell's extinction, floor {K5_TOL['floor']:g} of the "
+          f"largest (max abs err {err:.3e}); "
+          f"device {res['ms']:.4f} ms, call {res['call_ms']:.4f} ms, plain "
+          f"{res['plain_ms']:.4f} ms, library (the [N,60]@[60,45] matmul alone) "
+          f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.6f} ms ({res['bound_by']}), "
+          f"share {res['bound_ms'] / res['ms']:.3f}")
+    return res
+
+
 CHECKS = {"thomas_solve": check_thomas, "scatter_rows": check_scatter,
-          "gather_rows": check_gather, "threefry_draw": check_threefry}
+          "gather_rows": check_gather, "threefry_draw": check_threefry,
+          "mie_fit_bulk": check_mie_fit}
 CHECKED = {k: set() for k in CHECKS}     # argument shapes already held
 
 
@@ -695,6 +820,8 @@ def hold(kernels: dict, gen, name: str, shapes):
     res = CHECKS[name](gen, shapes)
     k = kernels[name]
     k["max_abs_err"] = max(k.get("max_abs_err", 0.0), res["max_abs_err"])
+    if "ms" not in k:                 # the first hold's times until phase 3 names its own
+        k.update({key: res[key] for key in KEYS})
     CHECKED[name].add(shapes)
     return res
 
@@ -746,8 +873,13 @@ def phase_kernels(kernels: dict):
               "normal": (rng.NORMAL_LO, rng.NORMAL_SPAN)}
     k4 = [hold(kernels, gen, "threefry_draw", (mode, (10, 40, 40, P), *ranges[mode], None))
           for mode in ("uniform", "bits", "normal")]
+    # K5: the CARES shape's 72x72x24 cells of 128 slots at the four bands
+    from wrf_partmc_tpu_torch.models.partmc.optics import WAVELENGTHS
+
+    k5 = [hold(kernels, gen, "mie_fit_bulk", (CARES_CELLS, 128, WAVELENGTHS))]
     for name, res, main in (("thomas_solve", k1, 1), ("scatter_rows", k2, 0),
-                            ("gather_rows", k3, 0), ("threefry_draw", k4, 0)):
+                            ("gather_rows", k3, 0), ("threefry_draw", k4, 0),
+                            ("mie_fit_bulk", k5, 0)):
         kernels[name].update({k: res[main][k] for k in KEYS})
     torch.cuda.empty_cache()
 
@@ -759,7 +891,7 @@ def phase_path_shapes(label: str, kernels: dict, shapes: dict):
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     new = {k: sorted(v - CHECKED[k], key=repr) for k, v in shapes.items()}
-    print(f"[kernels] {label}: shapes launched "
+    print(f"[kernels] {label} (at {time.perf_counter() - T_START:.1f} s): shapes launched "
           + json.dumps({k: len(v) for k, v in shapes.items()})
           + ", not yet held " + json.dumps({k: len(v) for k, v in new.items()}))
     for name, todo in new.items():
@@ -846,15 +978,18 @@ def drive(model, box: list, n_timed: int):
     return (state, warm, dt, *read_counts())
 
 
-def require_launched(kernels: dict, key: str, launches: dict, path: str, steps: int):
-    """Every kernel launched on the path; its count is printed with its
-    launches a step over the ``steps``."""
+def require_launched(kernels: dict, key: str, launches: dict, path: str, steps: int,
+                     optics: bool = False):
+    """Every kernel of the path launched (``OPTICS_KERNELS`` only where
+    ``optics``); its count is printed with its launches a step over the
+    ``steps``."""
     PATH_LAUNCHES[path] = (dict(launches), steps)
-    for name, rec in kernels.items():
-        rec[key] = launches[name]
-        require(rec[key] > 0, f"{name} was not launched on the {path}")
+    on_path = [name for name in kernels if optics or name not in OPTICS_KERNELS]
+    for name in on_path:
+        kernels[name][key] = launches[name]
+        require(launches[name] > 0, f"{name} was not launched on the {path}")
     print(f"[launches] {path}, {steps} steps: " + ", ".join(
-        f"{name} {rec[key]} ({rec[key] / steps:g} a step)" for name, rec in kernels.items()))
+        f"{name} {launches[name]} ({launches[name] / steps:g} a step)" for name in kernels))
 
 
 def phase_main_path(kernels: dict, n_timed: int = 6):
@@ -1120,10 +1255,11 @@ def phase_40class(kernels: dict):
 CARES_CELLS = 72 * 72 * 24
 
 
-def phase_card_vs_cpu_cares():
+def phase_card_vs_cpu_cares(kernels: dict):
     """One CARES-shaped step (MYJ, Morrison, Grell, correlated-k radiation
-    with the aerosol optics, Noah, open boundaries, chemistry on) at
-    12x10x8 on the card against the same step on the CPU: the dycore and
+    with the aerosol optics through K5, Noah, open boundaries, chemistry on)
+    at 12x10x8 on the card against the same step on the CPU (the optics'
+    plain version): K5 launched once and held at its shape; the dycore and
     particles by ``compare_card_cpu``, gases as phase 6, the Noah skin and
     soil temperatures and the MYJ q2 by the JAX parity rule of
     tests/test_torch_cares_coupled.py (rtol 1e-5), q2 with an absolute
@@ -1135,7 +1271,11 @@ def phase_card_vs_cpu_cares():
     model, state = build_cares_shape(12, 10, 8, n_part=16, cap=32, chem_on=True,
                                      device="cpu")
     out_cpu = model(state)                      # step 0 runs the chemistry
+    reset_counts()
     out_gpu = model.to("cuda")(state.to("cuda")).to("cpu")
+    launches, shapes = read_counts()
+    require(launches["mie_fit_bulk"] == 1,
+            f"card vs CPU, CARES: K5 launched {launches['mie_fit_bulk']} times in one step")
     g_rel = float(((out_gpu.gas - out_cpu.gas).abs() / (out_cpu.gas.abs() + 1e-9)).max())
     require(torch.allclose(out_gpu.gas, out_cpu.gas, rtol=1e-4, atol=1e-9),
             f"card vs CPU, CARES: gases max rel {g_rel}")
@@ -1150,7 +1290,10 @@ def phase_card_vs_cpu_cares():
     require(float((out_cpu.land.tsk - state.land.tsk).abs().max()) > 1e-3,
             "card vs CPU, CARES: the LSM did not run")
     print(f"[card-vs-cpu-cares] 12x10x8, 16/cell, 77 gases: gases max rel {g_rel:.2e}; "
-          + " ".join(f"{k} max diff {v:.2e};" for k, v in extra.items()) + f" {line}")
+          + " ".join(f"{k} max diff {v:.2e};" for k, v in extra.items()) + f" {line}; "
+          f"K5 launches {launches['mie_fit_bulk']}")
+    phase_path_shapes("CARES card-vs-CPU step", kernels,
+                      {name: shapes[name] for name in OPTICS_KERNELS})
 
 
 def phase_cares_path(kernels: dict, n_timed: int = 20):
@@ -1171,7 +1314,7 @@ def phase_cares_path(kernels: dict, n_timed: int = 20):
     print(f"[cares] build 72x72x24, 100/cell, cap 128, 77 gases, chem_dt 300 s, dt 30 s: "
           f"{time.perf_counter() - t0:.3f} s, alive {int(state.aero.n_alive().sum())}")
     by_caller, captured, draws = {}, {}, {}
-    restore = attribute_launches(by_caller, captured)
+    restore = attribute_launches(by_caller, captured, optics=True)
     restore_draws = record_draws(draws)
     box, state = [state], None          # drive holds the only reference
     state, warm, dt, launches, shapes = drive(model, box, n_timed)
@@ -1179,6 +1322,7 @@ def phase_cares_path(kernels: dict, n_timed: int = 20):
     restore()
     ms = 1e3 * dt / n_timed
     DRAWS["CARES path"] = (draws, n_timed + 1, ms)
+    PATH_MS["CARES path"] = ms
     alive = int(state.aero.n_alive().sum())
     means = _domain_means(model, state)
     mu_max = float(state.dyn.mu.abs().max())
@@ -1196,12 +1340,105 @@ def phase_cares_path(kernels: dict, n_timed: int = 20):
     require(state.step == n_timed + 1, "CARES path: step count")
     require(alive > 0, "CARES path: no particle alive")
     require(all(v == v and v >= 0.0 for v in means.values()), f"bad means {means}")
-    require_launched(kernels, "launches_cares", launches, "CARES path", n_timed + 1)
+    require_launched(kernels, "launches_cares", launches, "CARES path", n_timed + 1,
+                     optics=True)
+    for name in OPTICS_KERNELS:       # the main path of the optics kernels
+        kernels[name]["launches"] = launches[name]
+    require(launches["mie_fit_bulk"] == n_timed + 1,
+            f"CARES path: K5 launched {launches['mie_fit_bulk']} times in {n_timed + 1} steps")
     print(f"[cares] kernel launches by caller: {json.dumps(by_caller)}")
     for caller, n in by_caller.items():
         require(n > 0, f"CARES path: no kernel launch from {caller}")
-    draw_split("CARES path", model, state)
+    state, _ = draw_split("CARES path", model, state)
+    state = optics_split("CARES path", model, state)
+    state, _, _, split = synced_split(model, state, m_chem, "cares", extra=cares_split_sites())
+    OPTICS_SPLITS["CARES synced split"] = split
     return shapes, captured
+
+
+OPTICS_SPLITS = {}           # per path: the synced optics, K5 and plain; the CARES split
+
+
+def cares_split_sites():
+    """The CARES step's sections beyond ``split_sites``: the lateral
+    boundaries, MYJ, Morrison, the optics (its K5 sums inside), the
+    photolysis factor, Grell, Noah, the inflow resampling and the gas BCs."""
+    from wrf_partmc_tpu_torch.models.coupled import driver
+    from wrf_partmc_tpu_torch.models.dycore import arw
+    from wrf_partmc_tpu_torch.models.partmc import optics
+
+    d = driver
+    return ((d, "apply_specified_relax", "lateral BCs"),
+            (d, "myj_surface_layer", "MYJ surface layer"), (d, "myj_tke_step", "MYJ"),
+            (arw, "morrison_step", "dycore/Morrison"), (d, "bulk_optical_props", "optics"),
+            (optics, "mie_fit_sums", "optics/K5 sums"),
+            (d, "photolysis_aerosol_factor", "photolysis factor"), (d, "grell_step", "Grell"),
+            (d, "noah_lsm_step", "Noah"), (d, "resample_inflow_particles", "inflow"),
+            (d, "apply_gas_open_bc", "gas BCs"))
+
+
+def optics_split(path: str, model, state, steps: int = 2):
+    """``steps`` steps with the aerosol optics (``bulk_optical_props``) and
+    inside it the fitted sums (``optics.mie_fit_sums``) each between two
+    synchronizes, the sums through K5, then ``steps`` with the sums through
+    the plain version (as they ran before K5): each run's step ms, optics
+    ms, sums ms and the optics' share of the step, and the optics' peak
+    memory above what was allocated when the optics began (the optics'
+    own temporaries; the step's peak lies elsewhere).  The first K5 call is
+    also held against the plain version on the path's own population (its
+    diameters, indices and numbers).  Returns the state."""
+    import torch
+
+    from wrf_partmc_tpu_torch.models.coupled import driver
+    from wrf_partmc_tpu_torch.models.partmc import optics
+
+    res, population = {}, []
+    for how in ("K5", "plain"):
+        acc = {"optics": 0.0, "sums": 0.0, "peak": 0.0}
+
+        def timed(label, fn, args, kwargs, _how=how, _acc=acc):
+            if label == "sums" and _how == "plain":
+                fn = optics.mie_fit_sums_plain
+            elif label == "sums" and not population:
+                population.extend(a.clone() for a in args[:4])
+            torch.cuda.synchronize()
+            if label == "optics":
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            _acc[label] += 1e3 * (time.perf_counter() - t0)
+            if label == "optics":
+                _acc["peak"] = max(_acc["peak"], (torch.cuda.max_memory_allocated() - base) / 2**30)
+            return out
+        restore = patch_sites([(driver, "bulk_optical_props", "optics"),
+                               (optics, "mie_fit_sums", "sums")], timed)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                state = model(state)
+            torch.cuda.synchronize()
+            step_ms = 1e3 * (time.perf_counter() - t0) / steps
+        finally:
+            restore()
+        res[how] = dict(step_ms=step_ms, optics_ms=acc["optics"] / steps,
+                        sums_ms=acc["sums"] / steps, share=acc["optics"] / steps / step_ms,
+                        peak_gib=acc["peak"])
+    res["held"] = k5_hold(f"K5 on the {path}'s population", optics.mie_fit_sums(*population),
+                          optics.mie_fit_sums_plain(*population))
+    res["held_shape"] = list(population[0].shape)
+    del population
+    OPTICS_SPLITS[path] = res
+    print(f"[optics] {path}, {steps} steps each with synced optics: " + "; ".join(
+        f"{how} optics {r['optics_ms']:.3f} (sums {r['sums_ms']:.3f}) of {r['step_ms']:.3f} "
+        f"ms/step ({100 * r['share']:.2f}%), the optics' peak {r['peak_gib']:.3f} GiB above "
+        "its start"
+        for how in ("K5", "plain") for r in [res[how]])
+        + f"; K5 on the path's {res['held_shape']} population: sums within "
+        f"{K5_TOL['rtol']:g} of the cell's extinction (max abs err {res['held']:.3e})")
+    return state
 
 
 def patch_sites(sites, hook):
@@ -1223,7 +1460,8 @@ def patch_sites(sites, hook):
     return restore
 
 
-def attribute_launches(by_caller: dict, captured: dict, rebalance: bool = False):
+def attribute_launches(by_caller: dict, captured: dict, rebalance: bool = False,
+                       optics: bool = False):
     """Count, per caller, the kernel launches made inside the calls each of
     these modules makes to the kernels' dispatchers: K1 from the MYJ q2
     column and the Noah soil column, K2 and K3 from the transport rebucket,
@@ -1231,8 +1469,9 @@ def attribute_launches(by_caller: dict, captured: dict, rebalance: bool = False)
     driver's particle rebalance and, within it, ``split_largest``.  The
     first call of K2 or K3 at each (caller, shape) from a dispatcher also
     leaves a copy of its index array in ``captured`` (the path's own dst
-    and src; keyed (kernel, caller, payload shape, slots)).  Returns a
-    function that restores the modules."""
+    and src; keyed (kernel, caller, payload shape, slots)).  With
+    ``optics``, K5 in the driver's aerosol optics.  Returns a function that
+    restores the modules."""
     from wrf_partmc_tpu_torch.models.coupled import driver, transport
     from wrf_partmc_tpu_torch.models.partmc import aero_state, coag
     from wrf_partmc_tpu_torch.models.physics import lsm, myj
@@ -1251,11 +1490,14 @@ def attribute_launches(by_caller: dict, captured: dict, rebalance: bool = False)
         kernel_of.update({k: "gather_rows" for k in wrappers})
         sites += [(driver, "rebalance", "K3 in rebalance"),
                   (aero_state, "split_largest", "K3 in rebalance/split_largest")]
+    if optics:
+        kernel_of["K5 in the optics"] = "mie_fit_bulk"
+        sites.append((driver, "bulk_optical_props", "K5 in the optics"))
     by_caller.update({caller: 0 for caller in kernel_of})
 
     def hook(caller, fn, args, kwargs):
         kernel = kernel_of[caller]
-        if kernel != "thomas_solve" and caller not in wrappers:
+        if kernel in ("scatter_rows", "gather_rows") and caller not in wrappers:
             x, idx = args[0], args[1]
             slots = args[2] if kernel == "scatter_rows" else idx.shape[1]
             key = (kernel, caller, tuple(x.shape), slots)
@@ -2789,10 +3031,13 @@ def rank_step(path: str, kind: str = "em_uniform"):
     nx, ny, nz, n_part, cap = SMALL_DECOMPOSED[kind]
     model, state = build_path(kind, nx, ny, nz, n_part, cap, mesh.device, mesh)
     halo.reset_counts()
+    reset_counts()
     out = model(state).to("cpu")
+    launches, shapes = read_counts()
     ys, xs = mesh.slices(ny, nx)
-    torch.save({"state": out, "counts": halo.read_counts(), "ys": ys, "xs": xs},
-               f"{path}.{mesh.rank}")
+    torch.save({"state": out, "counts": halo.read_counts(), "ys": ys, "xs": xs,
+                "optics": {name: (launches[name], sorted(shapes[name]))
+                           for name in OPTICS_KERNELS}}, f"{path}.{mesh.rank}")
 
 
 def spawn_ranks(n: int, device: str, call: str, timeout_s: float = 600.0) -> list:
@@ -2847,12 +3092,13 @@ def hold_blocks(tag: str, whole, rank_out) -> str:
         f"{k}={v:.2e}" for k, v in diffs.items()))
 
 
-def phase_card_vs_cpu_decomposed():
+def phase_card_vs_cpu_decomposed(kernels: dict):
     """For each ``SMALL_DECOMPOSED`` path (em_uniform, the two option sets,
     the CARES shape): a world of one over NCCL on the card, then one over
     gloo on the CPU, one decomposed step each; with more cards visible (up
     to 4), the same over ``factor_2d(n)`` ranks, block by block.  Each card
-    rank's dycore block against the undecomposed step on the card."""
+    rank's dycore block against the undecomposed step on the card.  Each
+    CARES card rank launched K5 once, held at its block's shape."""
     import torch
 
     from wrf_partmc_tpu_torch.parallel.mesh import factor_2d
@@ -2888,6 +3134,12 @@ def phase_card_vs_cpu_decomposed():
                         f"{tag}: collectives {a['counts']} vs {b['counts']}")
                 extra = ""
                 if kind == "cares":
+                    k5_launches, k5_shapes = a["optics"]["mie_fit_bulk"]
+                    require(k5_launches == 1 and b["optics"]["mie_fit_bulk"][0] == 0,
+                            f"{tag}: K5 launched {k5_launches} times on the card, "
+                            f"{b['optics']['mie_fit_bulk'][0]} on the CPU")
+                    phase_path_shapes(f"{tag}, K5", kernels,
+                                      {"mie_fit_bulk": {_tuplify(sh) for sh in k5_shapes}})
                     ga, gb = a["state"].gas, b["state"].gas
                     g_rel = float(((ga - gb).abs() / (gb.abs() + 1e-9)).max())
                     require(torch.allclose(ga, gb, rtol=1e-4, atol=1e-9),
@@ -3094,6 +3346,8 @@ def phase_decomposed_path(kernels: dict):
                 f"decomposed {kind} path: the dycore block is {rep['dyn_block']}")
         if kind == "strong":
             for name, rec in kernels.items():
+                if name in OPTICS_KERNELS:
+                    continue
                 rec["launches_decomposed"] = rep["launches"][name]
                 require(rec["launches_decomposed"] > 0,
                         f"{name} was not launched on the decomposed path")
@@ -3224,9 +3478,14 @@ def phase_decomposed_options(kernels: dict):
         require(rep["dyn_block"] == [nz, ny // py, nx // px],
                 f"decomposed {label}: the dycore block is {rep['dyn_block']}")
         for name, rec in kernels.items():
+            if name in OPTICS_KERNELS and kind != "cares":
+                continue
             rec[f"launches_decomposed_{kind}_{scaling}"] = rep["launches"][name]
             require(rep["launches"][name] > 0, f"{name} was not launched on the decomposed "
                     f"{label} path")
+        if kind == "cares":
+            for name in OPTICS_KERNELS:       # set by the CARES path where it ran
+                kernels[name].setdefault("launches", rep["launches"][name])
         for caller, count in rep["by_caller"].items():
             require(count > 0 or "K3" in caller,
                     f"decomposed {label}: no kernel launch from {caller}")
@@ -3316,7 +3575,9 @@ def phase_bench(kernels: dict):
         worker, _, rec = line.partition(": ")
         require(rec.startswith("{"), f"bench: {line[:200]}")
         launches = json.loads(rec)["launches"]
-        need = ("thomas_solve",) if worker.startswith("[bench] dycore") else tuple(launches)
+        need = (("thomas_solve",) if worker.startswith("[bench] dycore") else
+                tuple(k for k in launches
+                      if k not in OPTICS_KERNELS or worker.startswith("[bench] cares")))
         require(all(launches[k] > 0 for k in need), f"bench: {line[:80]}: launches "
                 f"{launches}")
     print(f"[bench] {len(nums)} numbers, all finite and positive; first sweep points "
@@ -3380,7 +3641,7 @@ def run_decomposed(kernels: dict):
     shapes, _ = phase_main_path(kernels)
     _free()
     phase_path_shapes("main path", kernels, shapes)
-    phase_card_vs_cpu_decomposed()
+    phase_card_vs_cpu_decomposed(kernels)
     shapes = phase_decomposed_path(kernels)
     _free()
     phase_path_shapes("decomposed path", kernels, shapes)
@@ -3408,7 +3669,7 @@ def run_all(kernels: dict):
     shapes = phase_40class(kernels)
     _free()
     phase_path_shapes("40-class path", kernels, shapes)
-    phase_card_vs_cpu_cares()
+    phase_card_vs_cpu_cares(kernels)
     shapes, captured = phase_cares_path(kernels)
     _free()
     phase_path_shapes("CARES path", kernels, shapes)
@@ -3448,7 +3709,7 @@ def run_all(kernels: dict):
     shapes = phase_linear_path(kernels)
     _free()
     phase_path_shapes("linear path", kernels, shapes)
-    phase_card_vs_cpu_decomposed()
+    phase_card_vs_cpu_decomposed(kernels)
     shapes = phase_decomposed_path(kernels)
     _free()
     phase_path_shapes("decomposed path", kernels, shapes)
@@ -3457,7 +3718,8 @@ def run_all(kernels: dict):
 
 
 def main(argv=None) -> int:
-    t_start = time.perf_counter()
+    global T_START
+    T_START = t_start = time.perf_counter()
     decomposed_only = (sys.argv[1:] if argv is None else argv) == ["--decomposed"]
     sys.path.insert(0, ROOT)
     try:
@@ -3487,6 +3749,10 @@ def main(argv=None) -> int:
                                        "coagulation", "transport", "thinning", "dilution",
                                        "deposition", "emission", "inflow",
                                        "sea salt", "block draws"]),
+        "mie_fit_bulk": dict(route="cuda", source="wrf_partmc_tpu_torch/csrc/mie_fit.cu",
+                             replaces="wrf_partmc_tpu/models/partmc/mie.py:255 fit_lookup + "
+                                      "optics.py:184 bulk sums (XLA)",
+                             callers=["bulk_optical_props", "block CARES"]),
     }
     try:
         phase_card()

@@ -250,7 +250,7 @@ def test_tiny_preset_progress_lines(runs):
     for ln in lines:
         rec = json.loads(ln.split(": ", 1)[1])
         assert rec["launches"] == {"thomas_solve": 0, "scatter_rows": 0, "gather_rows": 0,
-                                   "threefry_draw": 0}
+                                   "threefry_draw": 0, "mie_fit_bulk": 0}
 
 
 # --------------------------------------------------------- (d) no card

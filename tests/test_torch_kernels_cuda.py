@@ -13,6 +13,11 @@ a column longer than one window) and for several strided fields per
 launch.  Outputs are allocated over NaN junk, so a slot a kernel misses
 shows.  K4 (threefry draws) must give its plain version's bits in every
 mode, flat and as every (2, 2) block of the em_uniform and CARES draws.
+K5 (bulk optics of the fitted Mie surrogate) sums the 900-term series and
+the cells in another order than its plain version: each of its sums is
+held within 2e-5 of its cell's extinction sum (``_k5_close``) on
+populations of the path's sizes and indices, and within 2e-3 over and
+beyond the fit's whole domain (see ``_k5_inputs``).
 """
 
 import dataclasses
@@ -20,9 +25,13 @@ import dataclasses
 import pytest
 import torch
 
-from wrf_partmc_tpu_torch.ops import place, threefry, tridiag
+from wrf_partmc_tpu_torch.models.partmc import mie, optics
+from wrf_partmc_tpu_torch.models.partmc.aero_data import make_aero_data
+from wrf_partmc_tpu_torch.models.partmc.aero_state import zero_state
+from wrf_partmc_tpu_torch.ops import mie_fit, place, threefry, tridiag
 from wrf_partmc_tpu_torch.parallel.mesh import Mesh
 from wrf_partmc_tpu_torch.utils import rng
+from wrf_partmc_tpu_torch.utils.tree import tree_map
 
 pytestmark = pytest.mark.gpu
 
@@ -449,3 +458,114 @@ def test_rng_draws_launch_k4(cuda):
         got = draw(cuda)
         assert threefry.threefry_draw.launches == before + (2 if name == "randint" else 1)
         _same_bits(got.cpu(), draw("cpu"))
+
+
+# K5: the fitted Mie surrogate's bulk sums
+def _k5_inputs(C, P, device, seed=0, wide=False):
+    """diam, n, k, live number [C, P]: diameters 1 nm to 10 um, n 1.33-1.82
+    and k 0 or 1e-3 to 0.74 (the species' indices), or with ``wide`` x
+    from 1e-4 to 1e3, n 1.0-2.2 and k 0, 1 or 1e-5 to 1, where the fit's
+    corners reach log10 q of +-30 and float32 900-term sums in two orders
+    differ by ~1e-4 of log10 q; dead slots and an empty first cell."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand((C, P), generator=g, device=device)
+    coin = lambda p: torch.rand((C, P), generator=g, device=device) < p
+    if wide:
+        diam = 10.0 ** u(-11.0, -3.5)
+        n = u(1.0, 2.2)
+        k = torch.where(coin(0.25), 0.0, torch.where(coin(0.3), 1.0, 10.0 ** u(-5.0, 0.0)))
+    else:
+        diam = 10.0 ** u(-9.0, -5.0)
+        n = u(1.33, 1.82)
+        k = torch.where(coin(0.3), 0.0, 10.0 ** u(-3.0, -0.13))
+    num = torch.where(coin(0.8), u(1e6, 1e8), 0.0)
+    num[0] = 0.0
+    return diam, n, k, num
+
+
+def _k5_close(got, want, rtol):
+    """Two [3, W, C] sums: each within ``rtol`` of its cell's extinction sum
+    (c_sca + c_abs) num with a floor of 1e-6 of the largest, and so the
+    extinction to ``rtol`` of itself.  Not each sum of itself: q_sca =
+    q_ext - q_abs cancels for small absorbing particles, so the last ulps of
+    q_ext move c_sca and c_abs by a share of c_ext; this bounds waer's
+    error by about 2 ``rtol``."""
+    got, want = got.double(), want.double()
+    ext = want[0] + want[1]
+    lim = rtol * ext + 1e-6 * float(ext.max())
+    for q in range(3):
+        err = (got[q] - want[q]).abs()
+        assert bool((err <= lim).all()), (q, float((err / lim.clamp(min=1e-300)).max()))
+
+
+def _k5(diam, n, k, num, wavelengths=optics.WAVELENGTHS):
+    before = mie_fit.mie_fit_bulk.launches
+    got = mie_fit.mie_fit_bulk(diam, n, k, num, mie._fit_coeffs(diam.device), wavelengths)
+    assert mie_fit.mie_fit_bulk.launches == before + 1
+    return got
+
+
+# the CARES block, the CARES card-vs-CPU step, one slot, a ragged warp and
+# more slots than a block has threads
+@pytest.mark.parametrize("C,P", [(24 * 36 * 36, 128), (960, 32), (7, 1), (5, 33), (3, 300)])
+def test_mie_fit_kernel_matches_plain(cuda, C, P):
+    ins = _k5_inputs(C, P, cuda)
+    got = _k5(*ins)
+    assert got.shape == (3, 4, C)
+    assert bool((got[:, :, 0] == 0.0).all())
+    _k5_close(got, optics.mie_fit_sums_plain(*ins), 2e-5)
+
+
+@pytest.mark.parametrize("bands", [1, 3])
+def test_mie_fit_kernel_fewer_bands(cuda, bands):
+    ins = _k5_inputs(50, 128, cuda, seed=1)
+    wl = optics.WAVELENGTHS[:bands]
+    got = _k5(*ins, wavelengths=wl)
+    assert got.shape == (3, bands, 50)
+    _k5_close(got, optics.mie_fit_sums_plain(*ins, wavelengths=wl), 2e-5)
+
+
+def test_mie_fit_kernel_whole_domain(cuda):
+    ins = _k5_inputs(200, 64, cuda, seed=2, wide=True)
+    _k5_close(_k5(*ins), optics.mie_fit_sums_plain(*ins), 2e-3)
+
+
+def test_bulk_optical_props_launches_k5_once(cuda):
+    """``bulk_optical_props`` on the card launches K5 once and gives the
+    CPU's fields (plain version) at rtol 2e-5, floor 1e-6 of the scale."""
+    cells, P = (3, 4, 5), 32
+    ad = make_aero_data()
+    S = ad.n_spec
+    g = torch.Generator().manual_seed(4)
+    frac = torch.rand((*cells, S, P), generator=g) * (torch.rand((*cells, S, P), generator=g) < 0.4)
+    frac[..., ad.spec_by_name("BC"), :] += 0.2
+    frac = frac / frac.sum(-2, keepdim=True)
+    v = torch.pi / 6 * (10.0 ** (-7.7 + 2.0 * torch.rand((*cells, P), generator=g))) ** 3
+    num = torch.where(torch.rand((*cells, P), generator=g) < 0.85,
+                      1e15 + 1e17 * torch.rand((*cells, P), generator=g), 0.0)
+    st = dataclasses.replace(zero_state(ad, P, cells), vol=frac * v[..., None, :] * (num > 0)[..., None, :],
+                             num=num)
+    dz = torch.tensor([60.0, 90.0, 140.0])
+    V = 4000.0 * 4000.0 * dz.reshape(-1, 1, 1) * torch.ones(cells)
+    ref = optics.bulk_optical_props(st, ad, dz, V)
+    before = mie_fit.mie_fit_bulk.launches
+    out = optics.bulk_optical_props(tree_map(lambda t: t.to(cuda), st),
+                                    make_aero_data(device=cuda), dz.to(cuda), V.to(cuda))
+    assert mie_fit.mie_fit_bulk.launches == before + 1
+    for name in ("tauaer", "waer", "gaer"):
+        want = getattr(ref, name)
+        torch.testing.assert_close(getattr(out, name).cpu(), want, rtol=2e-5,
+                                   atol=1e-6 * float(want.abs().max()), msg=name)
+
+
+def test_mie_fit_wrapper_refuses_bad_inputs(cuda):
+    ins = _k5_inputs(4, 8, cuda)
+    coeffs = mie._fit_coeffs(cuda)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        mie_fit.mie_fit_bulk(ins[0].cpu(), *ins[1:], coeffs, optics.WAVELENGTHS)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        mie_fit.mie_fit_bulk(ins[0].t(), *ins[1:], coeffs, optics.WAVELENGTHS)
+    with pytest.raises(ValueError, match=r"\[C, P\]"):
+        mie_fit.mie_fit_bulk(ins[0][:3], *ins[1:], coeffs, optics.WAVELENGTHS)
+    with pytest.raises(ValueError, match="wavelengths"):
+        mie_fit.mie_fit_bulk(*ins, coeffs, ())

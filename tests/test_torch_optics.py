@@ -199,3 +199,117 @@ def test_mosaic_timestep_with_j_scale(pop):
     np.testing.assert_array_equal(oa.num, ra.num)
     sv = lambda a: (a.vol * a.num[..., None, :]).sum(-1)
     np.testing.assert_allclose(sv(oa), sv(ra), rtol=5e-3, atol=1e-6 * sv(ra).sum(-1).max())
+
+
+# ---- K5's plain version (optics.mie_fit_sums_plain) ------------------------
+
+def _jax_sums(diam, n, k, live_num):
+    """The JAX package's per-cell sums [3, W, ...]: its per-particle
+    efficiencies (``particle_efficiencies(..., "mie_fit")``) formed into
+    cross-sections as ``per_particle_optics`` forms them."""
+    area = (jnp.pi / 4.0) * diam * diam
+    bands = []
+    for wl in joptics.WAVELENGTHS:
+        q_ext, q_sca, g = joptics.particle_efficiencies(diam, n, k, wl, "mie_fit")
+        c_sca = q_sca * area
+        bands.append(jnp.stack([jnp.sum(c_sca * live_num, -1),
+                                jnp.sum((q_ext - q_sca) * area * live_num, -1),
+                                jnp.sum(c_sca * g * live_num, -1)]))
+    return jnp.stack(bands, 1)
+
+
+def _fields(sums):
+    """Extinction, single-scattering albedo and asymmetry from [3, W, ...]
+    sums, as ``bulk_optical_props`` forms them (unit volume and depth)."""
+    s_sca, s_abs, s_g = (np.asarray(s, np.float64) for s in sums)
+    ext = s_sca + s_abs
+    return {"tauaer": ext, "waer": s_sca / np.maximum(ext, 1e-30),
+            "gaer": s_g / np.maximum(s_sca, 1e-30)}
+
+
+def test_mie_fit_sums_plain_on_pop(pop):
+    """On the population of ``pop`` (x 0.06-21, inside the fit's domain):
+    every per-cell sum and the bulk fields to rtol 2e-5 with a floor of
+    1e-6 of each row's scale, against the reference's per-particle optics
+    summed, and ``bulk_optical_props`` to the same bound."""
+    ad, st, dz, V, tad, tst = pop
+    c_sca, c_abs, g = jax.jit(lambda s: joptics.per_particle_optics(
+        s, ad, method="mie_fit"))(st)
+    live = np.where(st.alive, st.num, 0.0).astype(np.float32)
+    ref = np.stack([np.sum(np.asarray(c_sca) * live, -1), np.sum(np.asarray(c_abs) * live, -1),
+                    np.sum(np.asarray(c_sca) * np.asarray(g) * live, -1)])
+    diam = torch.clamp(tst.wet_diameter(), min=1e-9)
+    n, k = optics.particle_refractive_index(tst, tad)
+    out = optics.mie_fit_sums_plain(diam, n, k, torch.tensor(live))
+    assert out.shape == (3, 4, *CELLS)
+    for q in range(3):
+        for b in range(4):
+            close(out[q, b], ref[q, b], rtol=2e-5, err_msg=f"sum {q} band {b}")
+    ref_b = jax.jit(lambda s: joptics.bulk_optical_props(s, ad, dz, V))(st)
+    out_b = optics.bulk_optical_props(tst, tad, torch.tensor(dz), torch.tensor(V))
+    for name in ("tauaer", "waer", "gaer"):
+        close(getattr(out_b, name), getattr(ref_b, name), rtol=2e-5, err_msg=name)
+
+
+def _whole_domain(seed):
+    """[2, 3, 4] cells of 16 slots: diameters for x from 1e-4 to 1e3 at the
+    four bands, n from 1.0 to 2.2, k 0, 1 or 1e-5 to 1, dead slots, and an
+    empty cell."""
+    r = np.random.default_rng(seed)
+    sh = (2, 3, 4, 16)
+    f32 = lambda a: np.asarray(a, np.float32)
+    diam = f32(10.0 ** r.uniform(np.log10(1e-4 * 3e-7 / np.pi), np.log10(1e3 * 1e-6 / np.pi), sh))
+    n = f32(r.uniform(1.0, 2.2, sh))
+    k = f32(np.select([r.random(sh) < 0.25, r.random(sh) < 0.3], [0.0, 1.0],
+                      10.0 ** r.uniform(-5.0, 0.0, sh)))
+    num = f32(r.uniform(1e6, 1e8, sh) * (r.random(sh) < 0.8))
+    num[0, 0, 0] = 0.0
+    return diam, n, k, num
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_mie_fit_sums_plain_whole_domain(seed):
+    """Over and beyond the fit's whole domain: the bulk fields to rtol 2e-3
+    with a floor of 1e-6 of each field's scale.  Near t = +-1 (x near 1e-3
+    and 500) the fit amplifies a last-ulp difference of log10 x between the
+    frameworks some 10^4 times, and at the corners of (n, k) it reaches
+    log10 q of +-30, where the float32 900-term sums carry ~1e-4 of
+    log10 q; measured up to 4.5e-4 on such populations.  The empty cell
+    sums to exactly 0."""
+    diam, n, k, num = _whole_domain(seed)
+    ref = np.asarray(jax.jit(_jax_sums)(diam, n, k, num))
+    out = optics.mie_fit_sums_plain(*map(torch.tensor, (diam, n, k, num))).numpy()
+    assert out.shape == ref.shape == (3, 4, 2, 3, 4)
+    assert (out[..., 0, 0, 0] == 0.0).all()
+    got, want = _fields(out), _fields(ref)
+    for name in want:
+        close(got[name], want[name], rtol=2e-3, err_msg=name)
+
+
+def test_bulk_optics_on_cpu_launches_no_kernel(pop):
+    _, _, dz, V, tad, tst = pop
+    from wrf_partmc_tpu_torch.ops import mie_fit
+
+    mie_fit.mie_fit_bulk.launches = 0
+    optics.bulk_optical_props(tst, tad, torch.tensor(dz), torch.tensor(V), method="mie_fit")
+    assert mie_fit.mie_fit_bulk.launches == 0
+
+
+def test_mie_fit_bulk_refuses_bad_inputs():
+    from wrf_partmc_tpu_torch.ops import mie_fit
+
+    x = torch.ones((6, 8))
+    coeffs = mie._fit_coeffs("cpu")
+    wl = optics.WAVELENGTHS
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        mie_fit.mie_fit_bulk(x, x, x, x, coeffs, wl)
+    with pytest.raises(ValueError, match=r"\[C, P\]"):
+        mie_fit.mie_fit_bulk(x, x, x, torch.ones((6, 7)), coeffs, wl)
+    with pytest.raises(ValueError, match=r"\[C, P\]"):
+        mie_fit.mie_fit_bulk(*[torch.ones(48)] * 4, coeffs, wl)
+    with pytest.raises(ValueError, match="float32"):
+        mie_fit.mie_fit_bulk(x.double(), x, x, x, coeffs, wl)
+    with pytest.raises(ValueError, match="coeffs"):
+        mie_fit.mie_fit_bulk(x, x, x, x, coeffs[:, :44].contiguous(), wl)
+    with pytest.raises(ValueError, match="wavelengths"):
+        mie_fit.mie_fit_bulk(x, x, x, x, coeffs, wl + (1.2e-6,))

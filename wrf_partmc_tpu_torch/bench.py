@@ -128,10 +128,11 @@ def _peak_gib(device) -> float:
 
 
 def _kernels() -> dict:
-    from .ops import place, threefry, tridiag
+    from .ops import mie_fit, place, threefry, tridiag
 
     return {"thomas_solve": tridiag.thomas_solve, "scatter_rows": place.scatter_rows_cuda,
-            "gather_rows": place.gather_rows_cuda, "threefry_draw": threefry.threefry_draw}
+            "gather_rows": place.gather_rows_cuda, "threefry_draw": threefry.threefry_draw,
+            "mie_fit_bulk": mie_fit.mie_fit_bulk}
 
 
 class _Meter:

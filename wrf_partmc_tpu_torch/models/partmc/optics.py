@@ -6,7 +6,9 @@ volume mixing or Maxwell-Garnett BC inclusions, per-particle efficiencies
 from the Mie table (``method="mie"``), its fitted surrogate (``"mie_fit"``,
 the default of the bulk optics) or anomalous diffraction (``"adt"``), and
 their aggregation into layer tauaer / waer / gaer at the four shortwave
-bands.
+bands.  The fitted path's per-cell sums run on the card through K5
+(``ops/mie_fit.py``, ``mie_fit_sums``) and on the CPU through their plain
+version (``mie_fit_sums_plain``).
 """
 
 from __future__ import annotations
@@ -17,9 +19,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ...ops import mie_fit
 from .aero_data import AeroData, particle_volume
 from .aero_state import AeroState
-from .mie import fit_lookup, make_mie_table, table_lookup
+from .mie import _fit_coeffs, fit_lookup, make_mie_table, table_lookup
 
 # the 4 shortwave bands the reference couples (tauaer1-4) [m]
 WAVELENGTHS = (3.0e-7, 4.0e-7, 6.0e-7, 1.0e-6)
@@ -146,21 +149,56 @@ def per_particle_optics(state: AeroState, aero_data: AeroData,
     return torch.stack(c_sca), torch.stack(c_abs), torch.stack(gs)
 
 
+def mie_fit_sums_plain(diam, n, k, live_num, wavelengths=WAVELENGTHS):
+    """K5's plain version: per band and cell, Σ c_sca·num, Σ c_abs·num and
+    Σ c_sca·g·num over the slots (the last axis) by ``fit_lookup``, as
+    ``per_particle_optics`` forms the cross-sections.  diam, n, k, live_num:
+    [..., P]; returns [3, W, ...]."""
+    area = (torch.pi / 4.0) * diam * diam
+    bands = []
+    for wl in wavelengths:
+        q_ext, q_sca, g = fit_lookup(torch.pi * diam / wl, n, k)
+        c_sca = q_sca * area
+        bands.append(torch.stack([torch.sum(c_sca * live_num, dim=-1),
+                                  torch.sum((q_ext - q_sca) * area * live_num, dim=-1),
+                                  torch.sum(c_sca * g * live_num, dim=-1)]))
+    return torch.stack(bands, dim=1)
+
+
+def mie_fit_sums(diam, n, k, live_num, wavelengths=WAVELENGTHS):
+    """``mie_fit_sums_plain``'s [3, W, ...] sums: through K5 for CUDA
+    tensors (a launch, or an error), the plain version for CPU tensors."""
+    if not diam.is_cuda:
+        return mie_fit_sums_plain(diam, n, k, live_num, wavelengths)
+    P = diam.shape[-1]
+    flat = lambda t: t.reshape(-1, P).contiguous()
+    out = mie_fit.mie_fit_bulk(flat(diam), flat(n), flat(k), flat(live_num),
+                               _fit_coeffs(diam.device), wavelengths)
+    return out.reshape(3, len(wavelengths), *diam.shape[:-1])
+
+
 def bulk_optical_props(state: AeroState, aero_data: AeroData, dz, cell_volume,
                        wavelengths=WAVELENGTHS, method="mie_fit", mie_table=None,
                        maxwell_garnett: bool = False) -> BulkOptics:
     """Per-particle cross-sections summed to layer tauaer/waer/gaer; dz:
-    [nz] layer depths, cell_volume [nz, ny, nx]."""
-    c_sca, c_abs, g_i = per_particle_optics(state, aero_data, wavelengths, method,
-                                            mie_table, maxwell_garnett=maxwell_garnett)
+    [nz] layer depths, cell_volume [nz, ny, nx].  ``"mie_fit"`` takes the
+    sums from ``mie_fit_sums`` (K5 on the card)."""
     live_num = torch.where(state.alive, state.num, 0.0)
-    sca_n = c_sca * live_num
-    b_sca = torch.sum(sca_n, dim=-1) / cell_volume
-    b_ext = b_sca + torch.sum(c_abs * live_num, dim=-1) / cell_volume
+    if method == "mie_fit":
+        diam = torch.clamp(state.wet_diameter(), min=1e-9)
+        n, k = particle_refractive_index(state, aero_data, maxwell_garnett=maxwell_garnett)
+        s_sca, s_abs, s_g = mie_fit_sums(diam, n, k, live_num, wavelengths)
+    else:
+        c_sca, c_abs, g_i = per_particle_optics(state, aero_data, wavelengths, method,
+                                                mie_table, maxwell_garnett=maxwell_garnett)
+        s_sca = torch.sum(c_sca * live_num, dim=-1)
+        s_abs = torch.sum(c_abs * live_num, dim=-1)
+        s_g = torch.sum(c_sca * g_i * live_num, dim=-1)
+    b_sca = s_sca / cell_volume
+    b_ext = b_sca + s_abs / cell_volume
     tau = b_ext * dz.reshape(1, -1, 1, 1)
     w0 = b_sca / torch.clamp(b_ext, min=1e-30)
-    g = (torch.sum(c_sca * g_i * live_num, dim=-1)
-         / torch.clamp(torch.sum(sca_n, dim=-1), min=1e-30))
+    g = s_g / torch.clamp(s_sca, min=1e-30)
     return BulkOptics(tauaer=tau, waer=w0, gaer=g)
 
 

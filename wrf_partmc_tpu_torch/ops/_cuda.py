@@ -38,6 +38,7 @@ _SIGNATURES = {
     "wpt_scatter_rows_f32": [_P, _P, _P, _LL, _I, _I, _I, _P],
     "wpt_gather_rows_f32": [_P, _P, _P, _LL, _I, _I, _I, _P],
     "wpt_threefry_draw": [_P, _LL, _LL, _LL, _I, _F, _F, _I, *[_LL] * 7, _P],
+    "wpt_mie_fit_bulk": [*[_P] * 6, _LL, _I, _I, *[_F] * 10, _I, _P],
 }
 
 _lib = None
