@@ -66,6 +66,7 @@ from ...ops.stencil import AXIS_X, AXIS_Y, on_grid, shift
 from ...ops.vdiff import vertical_diffusion_state
 from ...parallel.mesh import Mesh, block_of, shard_field
 from ...utils import rng
+from ...utils.timing import span
 from ...utils.tree import tensor_leaves, tree_map, with_leaves
 from ..dycore.solve import solve_step
 from ..dycore.state import DycoreState, base_profiles, temperature, total_pressure
@@ -332,7 +333,7 @@ def coupled_step(cs: CoupledState, grid: Grid, cfg: Config,
     if grid.mesh != mesh:
         raise ValueError("coupled_step: with a mesh the grid must be its block grid "
                          "(grid.block_grid), and without one the whole domain")
-    with on_grid(grid):
+    with span("wpmc.step"), on_grid(grid):
         return _coupled_step(cs, grid, cfg, aero_data, gas_data, scn, exch_h,
                              base_seed_key, mech, bdy, bdy_w2, mesh)
 
@@ -358,158 +359,174 @@ def _coupled_step(cs: CoupledState, grid: Grid, cfg: Config, aero_data: AeroData
     t = step_time(cs.step, dt)
     cosz = solar_cos_zenith(cfg.domain, t)          # 0-d CPU tensor, a scalar operand
 
-    dyn = partmc_to_wrf(cs, grid, cfg)
-    dyn2, diag = solve_step(dyn, grid, cfg)
-    if bdy is not None:
-        dyn2 = apply_specified_relax(dyn2, bdy, t, grid, cfg, bdy_w2)
+    with span("wpmc.to_wrf"):
+        dyn = partmc_to_wrf(cs, grid, cfg)
+    with span("wpmc.solve_step"):
+        dyn2, diag = solve_step(dyn, grid, cfg)
+    with span("wpmc.bdy"):
+        if bdy is not None:
+            dyn2 = apply_specified_relax(dyn2, bdy, t, grid, cfg, bdy_w2)
     aero = cs.aero
 
     # surface layer + PBL (YSU for bl_physics=1, MYJ TKE for 2): replace
     # the prescribed exch_h and u*
     sfc_ustar = sfc_rmol = None
     q2_new = cs.pbl_q2
-    if dy.bl_physics in (1, 2):
-        theta = grid.t_base.reshape(-1, 1, 1) + dyn2.theta_p
-        u1 = 0.5 * (dyn2.u[0] + shift(dyn2.u[0], 1, AXIS_X))
-        v1 = 0.5 * (dyn2.v[0] + shift(dyn2.v[0], 1, AXIS_Y))
-        if cs.land is not None:
-            thsfc = cs.land.tsk / (grid.pb3[0] / c.P0) ** c.KAPPA
+    with span("wpmc.pbl"):
+        if dy.bl_physics in (1, 2):
+            theta = grid.t_base.reshape(-1, 1, 1) + dyn2.theta_p
+            u1 = 0.5 * (dyn2.u[0] + shift(dyn2.u[0], 1, AXIS_X))
+            v1 = 0.5 * (dyn2.v[0] + shift(dyn2.v[0], 1, AXIS_Y))
+            if cs.land is not None:
+                thsfc = cs.land.tsk / (grid.pb3[0] / c.P0) ** c.KAPPA
+            else:
+                thsfc = theta[0] + dy.sfc_heat_excess * torch.clamp(cosz, min=-0.25)
+            u3 = 0.5 * (dyn2.u + shift(dyn2.u, 1, AXIS_X))
+            v3 = 0.5 * (dyn2.v + shift(dyn2.v, 1, AXIS_Y))
+            if dy.bl_physics == 1:
+                sfc = surface_layer(u1, v1, theta[0], thsfc, grid.z_half[0], z0=dy.sfc_z0)
+                h_pbl = pbl_height(theta, grid.z_half, u=u3, v=v3)
+                exch_h = ysu_exch_h(grid, sfc["ustar"], sfc["rmol"], h_pbl,
+                                    hfx_kin=sfc["hfx_kin"], theta=theta, u=u3, v=v3)
+            else:
+                sfc = myj_surface_layer(u1, v1, theta[0], thsfc, grid.z_half[0],
+                                        z0=dy.sfc_z0)
+                q2_new, exch_h, _exch_m = myj_tke_step(cs.pbl_q2, theta, u3, v3, grid,
+                                                       sfc["ustar"], dt)
+            sfc_ustar, sfc_rmol = sfc["ustar"], sfc["rmol"]
+
+    with span("wpmc.vertical_diffusion"):
+        if dy.vert_diff_fields and not dy.constant_velocity:
+            rho_b, _, _ = base_profiles(grid)
+            kv = exch_h
+            if dy.diff_opt == 1 and dy.kvdif > 0:
+                kv = kv + dy.kvdif
+            dyn2 = vertical_diffusion_state(dyn2, kv, grid, rho_b, dt)
+
+    with span("wpmc.from_wrf"):
+        gas = partmc_from_wrf(dyn2)
+        env = make_env(dyn2, grid, cfg, cs.step)
+        if sfc_ustar is not None:
+            env = dataclasses.replace(env, ustar=sfc_ustar.expand(env.temp.shape))
+
+    with span("wpmc.emission"):
+        if pc.do_emission or pc.seasalt_param > 0:
+            a0 = aero
+            aero, gas = emission_step(aero, gas, env, aero_data, scn, cfg, grid, dyn2,
+                                      t, keys[rng.STREAM_EMISSION], mesh)
+            record("dilution", a0, aero)
         else:
-            thsfc = theta[0] + dy.sfc_heat_excess * torch.clamp(cosz, min=-0.25)
-        u3 = 0.5 * (dyn2.u + shift(dyn2.u, 1, AXIS_X))
-        v3 = 0.5 * (dyn2.v + shift(dyn2.v, 1, AXIS_Y))
-        if dy.bl_physics == 1:
-            sfc = surface_layer(u1, v1, theta[0], thsfc, grid.z_half[0], z0=dy.sfc_z0)
-            h_pbl = pbl_height(theta, grid.z_half, u=u3, v=v3)
-            exch_h = ysu_exch_h(grid, sfc["ustar"], sfc["rmol"], h_pbl,
-                                hfx_kin=sfc["hfx_kin"], theta=theta, u=u3, v=v3)
-        else:
-            sfc = myj_surface_layer(u1, v1, theta[0], thsfc, grid.z_half[0],
-                                    z0=dy.sfc_z0)
-            q2_new, exch_h, _exch_m = myj_tke_step(cs.pbl_q2, theta, u3, v3, grid,
-                                                   sfc["ustar"], dt)
-        sfc_ustar, sfc_rmol = sfc["ustar"], sfc["rmol"]
-
-    if dy.vert_diff_fields and not dy.constant_velocity:
-        rho_b, _, _ = base_profiles(grid)
-        kv = exch_h
-        if dy.diff_opt == 1 and dy.kvdif > 0:
-            kv = kv + dy.kvdif
-        dyn2 = vertical_diffusion_state(dyn2, kv, grid, rho_b, dt)
-
-    gas = partmc_from_wrf(dyn2)
-    env = make_env(dyn2, grid, cfg, cs.step)
-    if sfc_ustar is not None:
-        env = dataclasses.replace(env, ustar=sfc_ustar.expand(env.temp.shape))
-
-    if pc.do_emission or pc.seasalt_param > 0:
-        a0 = aero
-        aero, gas = emission_step(aero, gas, env, aero_data, scn, cfg, grid, dyn2,
-                                  t, keys[rng.STREAM_EMISSION], mesh)
-        record("dilution", a0, aero)
-    else:
-        gas = update_gas_state(scn, gas, t, dt)
+            gas = update_gas_state(scn, gas, t, dt)
 
     # aerosol optics, for the radiation direct effect and the photolysis
     # attenuation; from the population before this step's chemistry
     radiation = dy.ra_physics in (1, 4)
     optics = None
-    if pc.do_optical and radiation:
-        optics = bulk_optical_props(aero, aero_data, grid.dz, env.cell_volume)
+    with span("wpmc.optics"):
+        if pc.do_optical and radiation:
+            optics = bulk_optical_props(aero, aero_data, grid.dz, env.cell_volume)
 
     tdiag = {}
-    if ((pc.do_coagulation or pc.do_condensation or pc.do_nucleation
-         or pc.do_mosaic) and cs.step % m_chem == 0):
-        j_scale = None
-        if optics is not None and pc.do_mosaic:
-            j_scale = photolysis_aerosol_factor(optics.tauaer, optics.waer,
-                                                optics.gaer, cosz)
-        a0 = aero
-        aero, gas, coag_rem, events = cell_local_sharded(
-            mesh, lambda a_, g_, env_, js_, k_: microphysics_step(
-                a_, g_, env_, aero_data, gas_data, cfg, t, k_, mech=mech, j_scale=js_),
-            (aero, gas, env, j_scale), (keys[rng.STREAM_COAG],))
-        if rem is not None:
-            # coagulation's losses apart from the rest of the macro-step's
-            # (nucleation, MOSAIC, condensation)
-            rem["coag"] = rem["coag"] + coag_rem
-            rem["chem"] = rem["chem"] + torch.clamp(
-                a0.total_num() - aero.total_num() - coag_rem, min=0.0)
-        if events:
-            tdiag["coag_removed_id"] = events["removed_id"]
-            tdiag["coag_other_id"] = events["other_id"]
+    with span("wpmc.macro_step"):
+        if ((pc.do_coagulation or pc.do_condensation or pc.do_nucleation
+             or pc.do_mosaic) and cs.step % m_chem == 0):
+            j_scale = None
+            if optics is not None and pc.do_mosaic:
+                j_scale = photolysis_aerosol_factor(optics.tauaer, optics.waer,
+                                                    optics.gaer, cosz)
+            a0 = aero
+            aero, gas, coag_rem, events = cell_local_sharded(
+                mesh, lambda a_, g_, env_, js_, k_: microphysics_step(
+                    a_, g_, env_, aero_data, gas_data, cfg, t, k_, mech=mech, j_scale=js_),
+                (aero, gas, env, j_scale), (keys[rng.STREAM_COAG],))
+            if rem is not None:
+                # coagulation's losses apart from the rest of the macro-step's
+                # (nucleation, MOSAIC, condensation)
+                rem["coag"] = rem["coag"] + coag_rem
+                rem["chem"] = rem["chem"] + torch.clamp(
+                    a0.total_num() - aero.total_num() - coag_rem, min=0.0)
+            if events:
+                tdiag["coag_removed_id"] = events["removed_id"]
+                tdiag["coag_other_id"] = events["other_id"]
 
-    if dy.cu_physics == 2:
-        dyn2, _rainc = bmj_step(dyn2, grid, dt)
-    elif dy.cu_physics == 5:
-        dyn2, _rainc = grell_step(dyn2, grid, dt)
+    with span("wpmc.cumulus"):
+        if dy.cu_physics == 2:
+            dyn2, _rainc = bmj_step(dyn2, grid, dt)
+        elif dy.cu_physics == 5:
+            dyn2, _rainc = grell_step(dyn2, grid, dt)
 
     land2 = cs.land
-    if radiation:
-        rho_b, _, _ = base_profiles(grid)
-        rho3 = rho_b.reshape(-1, 1, 1).expand(env.temp.shape)
-        hr, rad = radiation_driver(
-            temperature(dyn2, grid), dyn2.moist[0], rho3, grid.dz, cosz,
-            t_sfc=(cs.land.tsk if cs.land is not None else None), optics=optics,
-            lw_scheme="kdist" if dy.ra_physics == 4 else "gray",
-            sw_scheme="kdist" if dy.ra_physics == 4 else "dudhia")
-        dyn2 = dataclasses.replace(dyn2, theta_p=dyn2.theta_p + dt * hr)
-        # the land surface takes this step's radiation and the surface
-        # layer's u*
-        if cs.land is not None and sfc_ustar is not None:
-            exner_sfc = (grid.pb3[0] / c.P0) ** c.KAPPA
-            th1 = grid.t_base[0] + dyn2.theta_p[0]
-            lsm_args = (cs.land, rad["sw_sfc_down"], rad["lw_sfc_down"],
-                        temperature(dyn2, grid)[0], dyn2.moist[0][0], rho3[0],
-                        sfc_ustar, exner_sfc, th1, dt)
-            if dy.sf_surface_physics == 2:
-                land2, _fluxes = noah_lsm_step(*lsm_args, season=_season(cfg))
-            else:
-                land2, _fluxes = slab_lsm_step(*lsm_args)
+    with span("wpmc.radiation"):
+        if radiation:
+            rho_b, _, _ = base_profiles(grid)
+            rho3 = rho_b.reshape(-1, 1, 1).expand(env.temp.shape)
+            hr, rad = radiation_driver(
+                temperature(dyn2, grid), dyn2.moist[0], rho3, grid.dz, cosz,
+                t_sfc=(cs.land.tsk if cs.land is not None else None), optics=optics,
+                lw_scheme="kdist" if dy.ra_physics == 4 else "gray",
+                sw_scheme="kdist" if dy.ra_physics == 4 else "dudhia")
+            dyn2 = dataclasses.replace(dyn2, theta_p=dyn2.theta_p + dt * hr)
+            # the land surface takes this step's radiation and the surface
+            # layer's u*
+            if cs.land is not None and sfc_ustar is not None:
+                exner_sfc = (grid.pb3[0] / c.P0) ** c.KAPPA
+                th1 = grid.t_base[0] + dyn2.theta_p[0]
+                lsm_args = (cs.land, rad["sw_sfc_down"], rad["lw_sfc_down"],
+                            temperature(dyn2, grid)[0], dyn2.moist[0][0], rho3[0],
+                            sfc_ustar, exner_sfc, th1, dt)
+                if dy.sf_surface_physics == 2:
+                    land2, _fluxes = noah_lsm_step(*lsm_args, season=_season(cfg))
+                else:
+                    land2, _fluxes = slab_lsm_step(*lsm_args)
 
     dz3 = None
     periodic = cfg.boundary.periodic_x and cfg.boundary.periodic_y
-    if pc.do_transport:
-        vol3 = cell_volume_3d(dyn2, grid)
-        rho3 = cell_air_mass(dyn2, grid) / vol3
-        dz3 = vol3 / (grid.dx * grid.dy)
-        a0 = aero
-        aero, trans = transport_step(aero, diag.probs, diag.xkhh, exch_h, grid,
-                                     cfg, dt, keys[rng.STREAM_TRANSPORT],
-                                     rho3=rho3, dz3=dz3, mesh=mesh)
-        tdiag.update(trans)
-        if not periodic:
-            record("outflow", a0, aero)
-    else:
-        zero = torch.zeros((), dtype=torch.float32, device=aero.num.device)
-        tdiag.update({k: zero for k in TRANSPORT_COUNTERS})
+    with span("wpmc.transport"):
+        if pc.do_transport:
+            vol3 = cell_volume_3d(dyn2, grid)
+            rho3 = cell_air_mass(dyn2, grid) / vol3
+            dz3 = vol3 / (grid.dx * grid.dy)
+            a0 = aero
+            aero, trans = transport_step(aero, diag.probs, diag.xkhh, exch_h, grid,
+                                         cfg, dt, keys[rng.STREAM_TRANSPORT],
+                                         rho3=rho3, dz3=dz3, mesh=mesh)
+            tdiag.update(trans)
+            if not periodic:
+                record("outflow", a0, aero)
+        else:
+            zero = torch.zeros((), dtype=torch.float32, device=aero.num.device)
+            tdiag.update({k: zero for k in TRANSPORT_COUNTERS})
 
-    if not periodic:
-        bc_key = rng.step_key(base_seed_key, cs.step, rng.STREAM_BC)
-        aero = resample_inflow_particles(aero, dyn2, scn, aero_data, grid, cfg, bc_key,
-                                         mesh)
-        gas = apply_gas_open_bc(gas, dyn2, scn, grid, cfg)
-    if pc.do_deposition:
+    with span("wpmc.inflow"):
+        if not periodic:
+            bc_key = rng.step_key(base_seed_key, cs.step, rng.STREAM_BC)
+            aero = resample_inflow_particles(aero, dyn2, scn, aero_data, grid, cfg, bc_key,
+                                             mesh)
+            gas = apply_gas_open_bc(gas, dyn2, scn, grid, cfg)
+    with span("wpmc.deposition"):
+        if pc.do_deposition:
+            a0 = aero
+            aero = cell_local_sharded(
+                mesh, lambda a_, env_, rmol_, dz1_, k_: surface_deposition(
+                    a_, env_, aero_data, grid, cfg, k_, rmol=rmol_, dz1=dz1_),
+                (aero, env, sfc_rmol, None if dz3 is None else dz3[0]),
+                (keys[rng.STREAM_DEPOSITION],))
+            record("deposition", a0, aero)
+    with span("wpmc.rebalance"):
         a0 = aero
         aero = cell_local_sharded(
-            mesh, lambda a_, env_, rmol_, dz1_, k_: surface_deposition(
-                a_, env_, aero_data, grid, cfg, k_, rmol=rmol_, dz1=dz1_),
-            (aero, env, sfc_rmol, None if dz3 is None else dz3[0]),
-            (keys[rng.STREAM_DEPOSITION],))
-        record("deposition", a0, aero)
-    a0 = aero
-    aero = cell_local_sharded(
-        mesh, lambda a_, k_: rebalance(a_, k_, pc.num_particles, pc.allow_halving,
-                                       pc.allow_doubling),
-        (aero,), (keys[rng.STREAM_REBALANCE],))
-    record("halving", a0, aero)
+            mesh, lambda a_, k_: rebalance(a_, k_, pc.num_particles, pc.allow_halving,
+                                           pc.allow_doubling),
+            (aero,), (keys[rng.STREAM_REBALANCE],))
+        record("halving", a0, aero)
     # every leaf contiguous (moist, chem and gas come out as transposed
     # views): a state read back from a restart is contiguous, and reductions
     # may sum in another order over another layout, so one layout keeps a
     # resumed run bit-equal to the run that wrote the restart
-    out = CoupledState(dyn=dyn2, aero=aero, gas=gas, step=cs.step + 1,
-                       land=land2, pbl_q2=q2_new, removals=rem)
-    return tree_map(lambda t: t.contiguous(), out), tdiag
+    with span("wpmc.finish"):
+        out = CoupledState(dyn=dyn2, aero=aero, gas=gas, step=cs.step + 1,
+                           land=land2, pbl_q2=q2_new, removals=rem)
+        return tree_map(lambda t: t.contiguous(), out), tdiag
 
 
 def init_coupled(cfg: Config, grid: Grid, aero_data: AeroData,

@@ -31,6 +31,7 @@ from ...parallel import halo
 from ...parallel.mesh import Mesh
 from ...utils import rng
 from ...utils.at import set_at
+from ...utils.timing import span
 from ..partmc.aero_state import AeroState, payload_channel_list, unpack_payload
 
 
@@ -291,108 +292,115 @@ def rebucket(aero: AeroState, dest_k, dj, di, horizontal, drop, acc, cfg: Config
 
     k_thin, k_rot = rng.split(key)
 
-    kk = torch.arange(nz, device=dev).reshape(nz, 1, 1, 1)
-    alive = aero.alive & ~drop
-    vert = (~horizontal) & (dest_k != kk)
-    hdir = torch.where(di < 0, 0, torch.where(di > 0, 1, torch.where(dj < 0, 2, 3)))
-    dcode4 = torch.where(vert, dest_k, torch.where(horizontal, nz + hdir, -1))
-    dcode = torch.where(alive, dcode4, -1).reshape(C, P)
-    mover = dcode >= 0
-    num_flat = aero.num.reshape(C, P)
+    with span("wpmc.transport.ranks"):
+        kk = torch.arange(nz, device=dev).reshape(nz, 1, 1, 1)
+        alive = aero.alive & ~drop
+        vert = (~horizontal) & (dest_k != kk)
+        hdir = torch.where(di < 0, 0, torch.where(di > 0, 1, torch.where(dj < 0, 2, 3)))
+        dcode4 = torch.where(vert, dest_k, torch.where(horizontal, nz + hdir, -1))
+        dcode = torch.where(alive, dcode4, -1).reshape(C, P)
+        mover = dcode >= 0
+        num_flat = aero.num.reshape(C, P)
 
-    # within-cell rank of each mover among its destination class (exclusive
-    # per-class cumsum), class counts and per-class number
-    rank_p = torch.zeros((C, P), dtype=torch.int64, device=dev)
-    cnt, masks = [], []
-    for d in range(D):
-        m = dcode == d
-        rank_p = torch.where(m, torch.cumsum(m, dim=-1) - 1, rank_p)
-        cnt.append(torch.sum(m, dim=-1, dtype=torch.float32))
-        masks.append(m)
-    cnt = torch.stack(cnt, dim=-1)                  # [C, D]
-    cnt4 = cnt.reshape(nz, nyl, nxl, D)
-    # column-global vertical ranks, source levels visited in a randomly
-    # rotated order
-    rot = rng.randint_scalar(k_rot, 0, nz)
-    a = torch.roll(cnt4, -rot, dims=0)
-    offs4 = torch.roll(torch.cumsum(a, dim=0) - a, rot, dims=0)
-    is_v_d = torch.arange(D, device=dev) < nz
-    offs_cd = torch.where(is_v_d, offs4, 0.0).reshape(C, D)
-    dsafe = dcode.clamp(min=0)
-    offs_p = torch.where(mover, torch.gather(offs_cd, 1, dsafe), 0.0)
-    rank_g = (rank_p + offs_p.to(torch.int64)) * mover
+        # within-cell rank of each mover among its destination class (exclusive
+        # per-class cumsum), class counts and per-class number
+        rank_p = torch.zeros((C, P), dtype=torch.int64, device=dev)
+        cnt, masks = [], []
+        for d in range(D):
+            m = dcode == d
+            rank_p = torch.where(m, torch.cumsum(m, dim=-1) - 1, rank_p)
+            cnt.append(torch.sum(m, dim=-1, dtype=torch.float32))
+            masks.append(m)
+        cnt = torch.stack(cnt, dim=-1)                  # [C, D]
+        cnt4 = cnt.reshape(nz, nyl, nxl, D)
+        # column-global vertical ranks, source levels visited in a randomly
+        # rotated order
+        rot = rng.randint_scalar(k_rot, 0, nz)
+        a = torch.roll(cnt4, -rot, dims=0)
+        offs4 = torch.roll(torch.cumsum(a, dim=0) - a, rot, dims=0)
+        is_v_d = torch.arange(D, device=dev) < nz
+        offs_cd = torch.where(is_v_d, offs4, 0.0).reshape(C, D)
+        dsafe = dcode.clamp(min=0)
+        offs_p = torch.where(mover, torch.gather(offs_cd, 1, dsafe), 0.0)
+        rank_g = (rank_p + offs_p.to(torch.int64)) * mover
 
-    is_v_p = dcode < nz
-    cap_p = torch.where(is_v_p, Av, Ah)
-    ship = mover & (rank_g < cap_p)
-    base_p = torch.where(is_v_p, dcode * Av, nz * Av + (dcode - nz) * Ah)
-    dst1 = torch.where(ship, base_p + rank_g, -1).to(torch.int32)
+        is_v_p = dcode < nz
+        cap_p = torch.where(is_v_p, Av, Ah)
+        ship = mover & (rank_g < cap_p)
+        base_p = torch.where(is_v_p, dcode * Av, nz * Av + (dcode - nz) * Ah)
+        dst1 = torch.where(ship, base_p + rank_g, -1).to(torch.int32)
 
-    # pool conservation: shipped movers of each pool carry the pool's whole
-    # departing number (vertical pools span the column)
-    shipped_num = torch.where(ship, num_flat, 0.0)
-    tot_cd = torch.stack([torch.sum(torch.where(m, num_flat, 0.0), dim=-1) for m in masks], -1)
-    shp_cd = torch.stack([torch.sum(torch.where(m, shipped_num, 0.0), dim=-1) for m in masks], -1)
-    tot4 = tot_cd.reshape(nz, nyl, nxl, D)
-    shp4 = shp_cd.reshape(nz, nyl, nxl, D)
-    tot_pool = torch.where(is_v_d, torch.sum(tot4, 0, keepdim=True), tot4)
-    shp_pool = torch.where(is_v_d, torch.sum(shp4, 0, keepdim=True), shp4)
-    sc4 = torch.where(shp_pool > 0.0, tot_pool / torch.clamp(shp_pool, min=0.0), 1.0)
-    scale_p = torch.gather(sc4.reshape(C, D), 1, dsafe)
-    num_all = torch.where(ship, num_flat * torch.clamp(scale_p, min=1.0), num_flat)
+    with span("wpmc.transport.t1"):
+        # pool conservation: shipped movers of each pool carry the pool's whole
+        # departing number (vertical pools span the column)
+        shipped_num = torch.where(ship, num_flat, 0.0)
+        tot_cd = torch.stack([torch.sum(torch.where(m, num_flat, 0.0), dim=-1)
+                              for m in masks], -1)
+        shp_cd = torch.stack([torch.sum(torch.where(m, shipped_num, 0.0), dim=-1)
+                              for m in masks], -1)
+        tot4 = tot_cd.reshape(nz, nyl, nxl, D)
+        shp4 = shp_cd.reshape(nz, nyl, nxl, D)
+        tot_pool = torch.where(is_v_d, torch.sum(tot4, 0, keepdim=True), tot4)
+        shp_pool = torch.where(is_v_d, torch.sum(shp4, 0, keepdim=True), shp4)
+        sc4 = torch.where(shp_pool > 0.0, tot_pool / torch.clamp(shp_pool, min=0.0), 1.0)
+        scale_p = torch.gather(sc4.reshape(C, D), 1, dsafe)
+        num_all = torch.where(ship, num_flat * torch.clamp(scale_p, min=1.0), num_flat)
 
-    cnt_pool_v = torch.sum(cnt4, dim=0)[..., :nz]
-    ovf_class = (torch.sum(torch.clamp(cnt_pool_v - Av, min=0.0))
-                 + torch.sum(torch.clamp(cnt4[..., nz:] - Ah, min=0.0)))
+        cnt_pool_v = torch.sum(cnt4, dim=0)[..., :nz]
+        ovf_class = (torch.sum(torch.clamp(cnt_pool_v - Av, min=0.0))
+                     + torch.sum(torch.clamp(cnt4[..., nz:] - Ah, min=0.0)))
 
-    # T1: the full payload (num replaced by the conserving num_all) through
-    # the mover mini-regions; rows that do not ship have dst -1 and drop
-    parts = [p.reshape(C, P) for p in payload_channel_list(aero)]
-    parts[0] = num_all
-    payload = torch.stack(parts, dim=1)             # [C, CH, P]
-    CH = payload.shape[1]
-    minis = scatter_rows(payload, dst1, F1)
-    arr = _reorder_minis(minis, nz, nyl, nxl, CH, Av, Ah, roll).contiguous()
-    del minis
+        # T1: the full payload (num replaced by the conserving num_all) through
+        # the mover mini-regions; rows that do not ship have dst -1 and drop
+        parts = [p.reshape(C, P) for p in payload_channel_list(aero)]
+        parts[0] = num_all
+        payload = torch.stack(parts, dim=1)             # [C, CH, P]
+        CH = payload.shape[1]
+        minis = scatter_rows(payload, dst1, F1)
+        arr = _reorder_minis(minis, nz, nyl, nxl, CH, Av, Ah, roll).contiguous()
+        del minis
 
-    # phase 1b: destination-side preweight thinning, then arrival/free ranks
-    a_num = arr[:, 0, :]
-    u = rng.uniform(k_thin, (C, AB), dev)
-    acc_c = acc.reshape(C, 1)
-    keep = (u < acc_c) & (a_num > 0.0)
-    a_num_th = torch.where(keep, a_num / torch.clamp(acc_c, min=1e-6), 0.0)
-    tot_arr = torch.sum(a_num_th, dim=-1)
-    arr[:, 0, :] = a_num_th
+    with span("wpmc.transport.thin"):
+        # phase 1b: destination-side preweight thinning, then arrival/free ranks
+        a_num = arr[:, 0, :]
+        u = rng.uniform(k_thin, (C, AB), dev)
+        acc_c = acc.reshape(C, 1)
+        keep = (u < acc_c) & (a_num > 0.0)
+        a_num_th = torch.where(keep, a_num / torch.clamp(acc_c, min=1e-6), 0.0)
+        tot_arr = torch.sum(a_num_th, dim=-1)
+        arr[:, 0, :] = a_num_th
 
-    stay_keep = alive.reshape(C, P) & ~mover
-    free = ~stay_keep
-    n_free = torch.sum(free, dim=-1)
-    f_rank = torch.cumsum(free, dim=-1) - 1
-    k_rank = torch.cumsum(keep, dim=-1) - 1
-    placed = keep & (k_rank < n_free[:, None])
-    n_kept = torch.sum(placed, dim=-1)
-    ovf_free = torch.sum(keep & ~placed, dtype=torch.float32)
+        stay_keep = alive.reshape(C, P) & ~mover
+        free = ~stay_keep
+        n_free = torch.sum(free, dim=-1)
+        f_rank = torch.cumsum(free, dim=-1) - 1
+        k_rank = torch.cumsum(keep, dim=-1) - 1
+        placed = keep & (k_rank < n_free[:, None])
+        n_kept = torch.sum(placed, dim=-1)
+        ovf_free = torch.sum(keep & ~placed, dtype=torch.float32)
 
-    # T2: compact kept arrivals by rank, each free slot gathers its rank'th
-    # arrival; stayers keep their payload (a select: the two sets of slots
-    # are disjoint, as the reference's arrived + payload * stay merge)
-    dstc = torch.where(placed, k_rank, -1).to(torch.int32)
-    srcp = torch.where(free & (f_rank < n_kept[:, None]), f_rank, -1).to(torch.int32)
-    arrived = gather_rows(scatter_rows(arr, dstc, AB), srcp)
-    merged = torch.where(stay_keep[:, None, :], payload, arrived)
-    del payload, arrived
+    with span("wpmc.transport.t2"):
+        # T2: compact kept arrivals by rank, each free slot gathers its rank'th
+        # arrival; stayers keep their payload (a select: the two sets of slots
+        # are disjoint, as the reference's arrived + payload * stay merge)
+        dstc = torch.where(placed, k_rank, -1).to(torch.int32)
+        srcp = torch.where(free & (f_rank < n_kept[:, None]), f_rank, -1).to(torch.int32)
+        arrived = gather_rows(scatter_rows(arr, dstc, AB), srcp)
+        merged = torch.where(stay_keep[:, None, :], payload, arrived)
+        del payload, arrived
 
-    # free-slot overflow fold: arrival number that found no free slot is
-    # folded onto the whole cell by a multiplicity rescale
-    stay_num = torch.sum(torch.where(stay_keep, num_flat, 0.0), dim=-1)
-    actual = torch.sum(merged[:, 0, :], dim=-1)
-    scale_cell = torch.where(actual > 0,
-                             (stay_num + tot_arr) / torch.clamp(actual, min=0.0), 1.0)
-    merged[:, 0, :] *= torch.clamp(scale_cell, min=1.0)[:, None]
+    with span("wpmc.transport.unpack"):
+        # free-slot overflow fold: arrival number that found no free slot is
+        # folded onto the whole cell by a multiplicity rescale
+        stay_num = torch.sum(torch.where(stay_keep, num_flat, 0.0), dim=-1)
+        actual = torch.sum(merged[:, 0, :], dim=-1)
+        scale_cell = torch.where(actual > 0,
+                                 (stay_num + tot_arr) / torch.clamp(actual, min=0.0), 1.0)
+        merged[:, 0, :] *= torch.clamp(scale_cell, min=1.0)[:, None]
 
-    new = unpack_payload(aero, merged)
-    diag = {"overflow_class": ovf_class, "overflow_free": ovf_free,
-            "movers": torch.sum(mover, dtype=torch.float32)}
+        new = unpack_payload(aero, merged)
+        diag = {"overflow_class": ovf_class, "overflow_free": ovf_free,
+                "movers": torch.sum(mover, dtype=torch.float32)}
     return new, diag
 
 
@@ -430,15 +438,17 @@ def transport_step_sharded(aero: AeroState, probs: OutflowProbs, xkhh, exch_h,
     (:func:`edge_roll`); the diagnostics are summed over the ranks."""
     if grid.mesh != mesh:
         raise ValueError("transport_step_sharded: the grid is not this mesh's block grid")
-    with on_grid(grid):
-        p_hdiff = horizontal_diffusion_probs(xkhh, grid, dt, rho3, cfg)
-    ph = normalized_face_probs(probs, p_hdiff)
-    R = vertical_operator(probs, exch_h, grid, dt, rho3, dz3)
-    acc = preweight_acceptance(aero, ph, R, cfg, mesh)
-    k = rng.fold_in(rng.fold_in(key, mesh.iy), mesh.ix)
-    k_mv, k_thin = rng.split(k)
-    dj, di, dest_k, horizontal = sample_moves(aero, ph, R, k_mv)
-    drop = open_boundary_drop(dj, di, horizontal, cfg, grid)
+    with span("wpmc.transport.probs"):
+        with on_grid(grid):
+            p_hdiff = horizontal_diffusion_probs(xkhh, grid, dt, rho3, cfg)
+        ph = normalized_face_probs(probs, p_hdiff)
+        R = vertical_operator(probs, exch_h, grid, dt, rho3, dz3)
+        acc = preweight_acceptance(aero, ph, R, cfg, mesh)
+    with span("wpmc.transport.sample"):
+        k = rng.fold_in(rng.fold_in(key, mesh.iy), mesh.ix)
+        k_mv, k_thin = rng.split(k)
+        dj, di, dest_k, horizontal = sample_moves(aero, ph, R, k_mv)
+        drop = open_boundary_drop(dj, di, horizontal, cfg, grid)
     new, diag = rebucket(aero, dest_k, dj, di, horizontal, drop, acc, cfg, k_thin,
                          roll=edge_roll(mesh))
     names = list(diag)
@@ -457,10 +467,12 @@ def transport_step(aero: AeroState, probs: OutflowProbs, xkhh, exch_h,
         return transport_step_sharded(aero, probs, xkhh, exch_h, grid, cfg, dt, key,
                                       mesh, rho3, dz3)
     k_mv, k_thin = rng.split(key)
-    p_hdiff = horizontal_diffusion_probs(xkhh, grid, dt, rho3, cfg)
-    ph = normalized_face_probs(probs, p_hdiff)
-    R = vertical_operator(probs, exch_h, grid, dt, rho3, dz3)
-    acc = preweight_acceptance(aero, ph, R, cfg)
-    dj, di, dest_k, horizontal = sample_moves(aero, ph, R, k_mv)
-    drop = open_boundary_drop(dj, di, horizontal, cfg)
+    with span("wpmc.transport.probs"):
+        p_hdiff = horizontal_diffusion_probs(xkhh, grid, dt, rho3, cfg)
+        ph = normalized_face_probs(probs, p_hdiff)
+        R = vertical_operator(probs, exch_h, grid, dt, rho3, dz3)
+        acc = preweight_acceptance(aero, ph, R, cfg)
+    with span("wpmc.transport.sample"):
+        dj, di, dest_k, horizontal = sample_moves(aero, ph, R, k_mv)
+        drop = open_boundary_drop(dj, di, horizontal, cfg)
     return rebucket(aero, dest_k, dj, di, horizontal, drop, acc, cfg, k_thin)
