@@ -47,6 +47,9 @@ class Grid:
     f_cor: torch.Tensor         # [ny, nx] Coriolis parameter [s-1]
     rdx: float = 0.0
     rdy: float = 0.0
+    # z_full[-1] as a host number, read once when the grid is built, so the
+    # step reads the model top without a device-to-host copy
+    ztop: float | None = None
     dx: float = 0.0
     dy: float = 0.0
     nx: int = 0
@@ -57,6 +60,10 @@ class Grid:
     mesh: Mesh | None = None
     global_ny: int = 0
     global_nx: int = 0
+
+    def __post_init__(self):
+        if self.ztop is None:
+            object.__setattr__(self, "ztop", float(self.z_full[-1]))
 
     @property
     def cell_volume(self) -> torch.Tensor:

@@ -439,7 +439,7 @@ def dyn_step_arw(state: DycoreState, grid: Grid, cfg: Config):
     s3, fluxes = _acoustic_arw(state, s2, t3, grid, cfg, dt, ns, True)
 
     if dyn.damp_opt:
-        ztop = float(grid.z_full[-1])
+        ztop = grid.ztop
         zf = (grid.phb + s3.ph) / c.GRAV
         frac = torch.clamp((zf - (ztop - dyn.zdamp)) / max(dyn.zdamp, 1.0),
                            0.0, 1.0)

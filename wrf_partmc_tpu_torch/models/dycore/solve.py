@@ -11,10 +11,18 @@ acoustic substeps with forward-backward horizontal momentum and a
 vertically implicit w-p column solve (``_acoustic_integrate``, through
 ``ops/tridiag.solve``: kernel K1 on the card), then RK3 scalar advection
 with per-class flux capture.  ``constant_velocity`` freezes the dynamics.
+
+On the card ``solve_step`` replays a CUDA graph of the step: a whole-domain
+CUDA state runs eagerly on its first call for a key (shapes, strides,
+``Config``, device, the grid's buffers), is captured on its second and
+replayed from then on; every other call runs eagerly.  ``GRAPH_COUNTS``
+counts the three.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from collections import OrderedDict
 from dataclasses import dataclass
 
 import torch
@@ -26,6 +34,7 @@ from ...ops.advection import (OutflowProbs, face_fluxes, flux_divergence,
                               rk3_advect_mono, rk3_advect_pd)
 from ...ops.stencil import AXIS_X, AXIS_Y, on_grid, shift
 from ...ops.tridiag import solve as tridiag_solve
+from ...utils.tree import tree_map
 from ..physics.microphysics import kessler_step, wsm5_step
 from ..physics.morrison import morrison_step
 from .state import DycoreState, base_profiles, replace
@@ -295,6 +304,91 @@ def dyn_step(state: DycoreState, grid: Grid, cfg: Config) -> DycoreState:
     return s3
 
 
+# calls of solve_step: captured into a graph (and replayed once), replayed,
+# run eagerly
+GRAPH_COUNTS = {"captures": 0, "replays": 0, "eager": 0}
+
+# the graphs kept, least recently used first: key -> _Graph, or the grid's
+# tensors alone after a key's first (eager) call
+_GRAPHS: OrderedDict = OrderedDict()
+MAX_GRAPHS = 4
+
+
+def reset_graph_counts() -> None:
+    GRAPH_COUNTS.update(captures=0, replays=0, eager=0)
+
+
+def read_graph_counts() -> dict:
+    """A copy of :data:`GRAPH_COUNTS`."""
+    return dict(GRAPH_COUNTS)
+
+
+def clear_graphs() -> None:
+    """Drop every kept graph and its memory."""
+    _GRAPHS.clear()
+
+
+@dataclass
+class _Graph:
+    graph: torch.cuda.CUDAGraph
+    static_in: DycoreState
+    static_out: tuple            # (DycoreState, StepDiag): the graph's buffers
+    grid_tensors: tuple          # the grid's buffers that the graph reads
+
+
+def _grid_tensors(grid: Grid) -> tuple:
+    return tuple(v for v in (getattr(grid, f.name) for f in dataclasses.fields(grid))
+                 if isinstance(v, torch.Tensor))
+
+
+def graph_key(state: DycoreState, grid: Grid, cfg: Config):
+    """The key of the graph that runs ``solve_step`` on these arguments, or
+    None where the call runs eagerly: a state not wholly on one CUDA
+    device, a block grid (its halo exchanges), a leaf that requires grad,
+    or a stream that is capturing already.  The key holds each state
+    leaf's shape, dtype and strides (None for an absent ``mu``/``ph``),
+    the ``Config``, the device, the grid's non-tensor fields and the
+    addresses of its buffers, which the graph reads in place."""
+    if grid.mesh is not None:
+        return None
+    leaves, device = [], None
+    for f in dataclasses.fields(state):
+        t = getattr(state, f.name)
+        if t is None:
+            leaves.append(None)
+            continue
+        if t.device.type != "cuda" or t.requires_grad or device not in (None, t.device):
+            return None
+        device = t.device
+        leaves.append((tuple(t.shape), t.dtype, t.stride()))
+    if device is None or torch.cuda.is_current_stream_capturing():
+        return None
+    grid_part = tuple(v.data_ptr() if isinstance(v, torch.Tensor) else v
+                      for v in (getattr(grid, f.name) for f in dataclasses.fields(grid)))
+    return tuple(leaves), cfg, device, grid_part
+
+
+def _capture(state: DycoreState, grid: Grid, cfg: Config) -> _Graph:
+    """The step captured on a copy of ``state``, on a side stream (the
+    legacy default stream cannot capture), into the graph's own memory
+    pool; the capture runs nothing, the caller replays it.  Not through
+    ``torch.cuda.graph``, which empties the allocator's cache first: the
+    particle step after it would then allocate all its buffers anew."""
+    static_in = tree_map(torch.clone, state)
+    graph = torch.cuda.CUDAGraph()
+    main = torch.cuda.current_stream(state.u.device)
+    side = torch.cuda.Stream(state.u.device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        try:
+            static_out = _solve_step_eager(static_in, grid, cfg)
+        finally:
+            graph.capture_end()
+    main.wait_stream(side)
+    return _Graph(graph, static_in, static_out, _grid_tensors(grid))
+
+
 def solve_step(state: DycoreState, grid: Grid, cfg: Config):
     """One full dycore timestep: dynamics, then the scalar families
     advected with per-class flux capture and the microphysics adjustment
@@ -302,7 +396,47 @@ def solve_step(state: DycoreState, grid: Grid, cfg: Config):
     (new_state, StepDiag).  The ARW core runs when ``dyn_opt == "arw"`` and
     the state carries ``mu``; otherwise the linear core.  On a block
     ``grid`` (``grid.block_grid``) the state is the rank's block and every
-    horizontal neighbour access is a block stencil (``ops.stencil``)."""
+    horizontal neighbour access is a block stencil (``ops.stencil``).
+
+    Where :func:`graph_key` gives a key, the second call with it captures
+    the step in a CUDA graph and later calls replay it: the state's leaves
+    are copied into the graph's inputs, and the returned state is a fresh
+    copy of its outputs, so it stays valid.  The returned ``StepDiag`` is
+    then the graph's own buffers: valid until the next call with the same
+    key."""
+    key = graph_key(state, grid, cfg)
+    if key is None:
+        GRAPH_COUNTS["eager"] += 1
+        return _solve_step_eager(state, grid, cfg)
+    entry = _GRAPHS.get(key)
+    if entry is None:
+        _GRAPHS[key] = _grid_tensors(grid)
+        if len(_GRAPHS) > MAX_GRAPHS:
+            _GRAPHS.popitem(last=False)
+        GRAPH_COUNTS["eager"] += 1
+        return _solve_step_eager(state, grid, cfg)
+    _GRAPHS.move_to_end(key)
+    if isinstance(entry, _Graph):
+        _copy_into(entry.static_in, state)
+        GRAPH_COUNTS["replays"] += 1
+    else:
+        entry = _GRAPHS[key] = _capture(state, grid, cfg)
+        GRAPH_COUNTS["captures"] += 1
+    entry.graph.replay()
+    new, diag = entry.static_out
+    return tree_map(torch.clone, new), diag
+
+
+def _copy_into(dst: DycoreState, src: DycoreState) -> None:
+    """Copy every tensor leaf of ``src`` into ``dst``'s in place."""
+    for f in dataclasses.fields(dst):
+        d = getattr(dst, f.name)
+        if d is not None:
+            d.copy_(getattr(src, f.name))
+
+
+def _solve_step_eager(state: DycoreState, grid: Grid, cfg: Config):
+    """:func:`solve_step`'s work, run as it is called."""
     with on_grid(grid):
         if cfg.dynamics.dyn_opt == "arw" and state.mu is not None:
             from .arw import solve_step_arw

@@ -178,7 +178,7 @@ def wsm5_step(state: DycoreState, grid: Grid, dt) -> DycoreState:
     # depositional growth / sublimation of snow
     ssi = qv - qsi
     dep = torch.where((temp < c.T_FREEZE) & (qs > 0.0),
-                      ssi * (1.0 - torch.exp(ssi.new_tensor(-dt / TAU_DEP))), 0.0)
+                      ssi * (1.0 - torch.exp(ssi.new_full((), -dt / TAU_DEP))), 0.0)
     dep = torch.maximum(dep, -qs)
     qv, qs = qv - dep, qs + dep
     theta = theta + ls_cp * dep
