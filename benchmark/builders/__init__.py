@@ -4,22 +4,25 @@
 The port's own builders fix the random streams' seed at 0, so these
 assemble the model from the port's public pieces with the seed's key, the
 same pieces in the same order as ``entry.build``.  ``root`` names the
-package whose pieces are assembled: the program, or the plain reference's
-frozen copy of it, so both sides build the same start, each with its own
-code, from one assembly.
+package whose pieces are assembled: the program, or the configuration's
+plain reference, a frozen copy of it under ``benchmark/reference/`` (the
+configuration file's ``"reference"``), so both sides build the same start,
+each with its own code, from one assembly.
 """
 
 import importlib
 
 PROGRAM = "wrf_partmc_tpu_torch"
-REFERENCE = "benchmark.reference.wpmc_plain"
+REFERENCES = "benchmark.reference"
 MASK32 = 0xFFFFFFFF
 
 
 def module(root: str, name: str):
-    """``<root>.<name>``: a module of the program or of the reference."""
-    if root not in (PROGRAM, REFERENCE):
-        raise ValueError(f"root {root!r} is neither {PROGRAM!r} nor {REFERENCE!r}")
+    """``<root>.<name>``: a module of the program or of a plain reference
+    (``benchmark.reference.<package>``); any other root is refused."""
+    head, _, package = root.rpartition(".")
+    if root != PROGRAM and not (head == REFERENCES and package.isidentifier()):
+        raise ValueError(f"root {root!r} is neither {PROGRAM!r} nor {REFERENCES}.<package>")
     return importlib.import_module(f"{root}.{name}")
 
 

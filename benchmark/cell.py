@@ -10,9 +10,13 @@ then one with synchronised spans around the sections the metrics name,
 until ``seconds`` have passed in all.  The state passes from stage to
 stage in a one-element list, so that no stage keeps a state the program
 has left behind and the memory peak is the program's.  After the window
-the memory peak is read, the program is freed, and the plain reference
-judges the window's last step (``compare``).  The metrics are read by the
-cell's readers (``metrics/<name>.py``) from a :class:`Run`.
+the memory peak is read, the program is freed, and the configuration's
+plain reference judges the window's last step (``compare``).  The metrics
+are read by the cell's readers (``metrics/<name>.py``) from a
+:class:`Run`: a traced run's program spans (``sections.read`` of the
+profiled phase) and, for the counters the readers name (``COUNTERS``),
+each counter's change from the window's start to its end, both copies
+taken outside the timed steps.
 """
 
 from __future__ import annotations
@@ -27,8 +31,7 @@ from dataclasses import dataclass, field
 
 import torch
 
-from . import compare, spec, trace
-from .builders import REFERENCE
+from . import compare, sections, spec, trace
 from .window import cadence_of, run_window, warm_up
 
 PROFILE_SECONDS = 2.0
@@ -51,6 +54,8 @@ class Run:
     trace: dict | None = None                       # trace.read_trace of the profiled phase
     trace_steps: int = 0
     kernel_bounds: list = field(default_factory=list)   # [(kernel, bound ms)]
+    sections: dict = field(default_factory=dict)   # sections.read of the profiled phase
+    counters: dict = field(default_factory=dict)   # site -> {name: change over the window}
 
 
 def forbidden_modules() -> list:
@@ -80,19 +85,20 @@ def power_limit(device) -> str:
 
 def judge(cell: spec.Cell, seed: int, device, prog_prev, prog_out, fp_prog,
           control: bool = False):
-    """The comparison's numbers: the reference builds the start from the
-    seed and follows the program's last step from the state it started
-    from.  With ``control``, also the control's numbers: the reference in
-    bfloat16 (its start, the step's input and its output rounded) in the
-    program's place.  Returns the readings, or (program's, control's)."""
+    """The comparison's numbers: the configuration's reference builds the
+    start from the seed and follows the program's last step from the state
+    it started from.  With ``control``, also the control's numbers: the
+    reference in bfloat16 (its start, the step's input and its output
+    rounded) in the program's place.  Returns the readings, or (program's,
+    control's)."""
     from .reference.state import adopt
 
     model, s0 = spec.builder(cell.config["name"]).build(cell.config, cell.traffic, seed,
-                                                        device, root=REFERENCE)
+                                                        device, root=cell.reference)
     fp_ref = compare.fingerprint(s0)
     fp_ctrl = compare.fingerprint(compare.to_bfloat16(s0)) if control else None
     del s0
-    ref_out = model(adopt(prog_prev, device))
+    ref_out = model(adopt(prog_prev, device, cell.reference))
     got = compare.readings(prog_out, ref_out, fp_prog, fp_ref)
     if not all(math.isfinite(v) for v in got.values()):
         print("not finite: the step's input "
@@ -101,7 +107,8 @@ def judge(cell: spec.Cell, seed: int, device, prog_prev, prog_out, fp_prog,
               f"{compare.nonfinite(ref_out)}", file=sys.stderr, flush=True)
     if not control:
         return got
-    ctrl_out = compare.to_bfloat16(model(compare.to_bfloat16(adopt(prog_prev, device))))
+    ctrl_out = compare.to_bfloat16(model(compare.to_bfloat16(
+        adopt(prog_prev, device, cell.reference))))
     return got, compare.readings(ctrl_out, ref_out, fp_ctrl, fp_ref)
 
 
@@ -143,15 +150,19 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool, device,
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
     run.setup_s = time.time() - t_start
+    counted = [s for r in readers.values() for s in getattr(r, "COUNTERS", ())]
+    counts = trace.read_counters(counted)
     if traced:
         win, trace_path = _traced_window(run, model, box, cadence, seconds, device, sync,
                                           readers)
     else:
         win = run_window(model, box, cadence, seconds, sync)
         run.steps, run.window_s = win.steps, win.seconds
+    run.counters = trace.counter_change(counts, trace.read_counters(counted))
     run.peak_bytes = torch.cuda.max_memory_allocated(device) if cuda else 0
     if traced:
         run.trace = trace.read_trace(trace_path)
+        run.sections = sections.read(trace_path)
         os.remove(trace_path)
     prog_prev, prog_out = win.prev, win.state
     del model, win

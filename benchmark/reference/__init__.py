@@ -1,5 +1,6 @@
-"""The plain reference: ``wpmc_plain``, a frozen plain-PyTorch copy of the
-port's coupled step (``README.md`` lists every difference).  Each
-configuration's builder (``benchmark/builders/<config>.py``) assembles the
-reference's model and initial state from the seed with this package's own
-code.  Nothing here imports the program."""
+"""The plain references: frozen plain-PyTorch copies of the port's coupled
+step, one package each (``wpmc_plain``; ``README.md`` lists its
+differences).  A configuration names its own in its file's
+``"reference"``; its builder (``benchmark/builders/<config>.py``)
+assembles the reference's model and initial state from the seed with that
+package's own code.  Nothing here imports the program."""

@@ -4,14 +4,18 @@
 cells and the metrics.  A cell ``<config>.<traffic>`` then takes
 
 - ``configs/<config>.json``: the configuration's sizes, its source, what
-  was reduced and what assumed (the file ``BENCHMARK.json`` names);
+  was reduced and what assumed (the file ``BENCHMARK.json`` names), its
+  ``"tiny"`` sizes (what a CPU test run holds) and its ``"reference"``:
+  the package under ``reference/`` that judges its output;
 - ``builders/<config>.py``: how it is built from a seed, by the program
   and, on the same assembly, by the plain reference;
 - ``workloads/<config>.<traffic>.json``: the cell's traffic (particles a
   cell, slots a cell);
 - ``limits/<config>.<traffic>.json``: the limit of each number the output
   comparison reads;
-- ``metrics/<metric>.py``: one reader for each metric the cell reports.
+- ``metrics/<metric>.py``: one reader for each metric the cell reports,
+  with the program's sections it times (``SITES``) and the program's
+  counters it reads (``COUNTERS``).
 
 Adding a cell, a configuration or a metric adds files and entries; no
 file here changes.
@@ -23,6 +27,8 @@ import importlib.util
 import json
 from dataclasses import dataclass
 from pathlib import Path
+
+from .builders import REFERENCES
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -47,6 +53,11 @@ class Cell:
     def chips(self) -> int:
         return int(self.entry["chips"])
 
+    @property
+    def reference(self) -> str:
+        """The root of the configuration's plain reference."""
+        return f"{REFERENCES}.{self.config['reference']}"
+
 
 def load_benchmark(root: Path = ROOT) -> dict:
     with open(Path(root) / "BENCHMARK.json") as f:
@@ -58,6 +69,22 @@ def _load_json(path: Path, what: str) -> dict:
         raise SpecError(f"{what}: no file {path}")
     with open(path) as f:
         return json.load(f)
+
+
+def _load_config(path: Path, name: str, root: Path) -> dict:
+    """A configuration's file, refused by its path unless it states its
+    ``"tiny"`` sizes and a ``"reference"`` package that exists."""
+    config = _load_json(path, f"configuration {name!r}")
+    tiny = config.get("tiny")
+    if not isinstance(tiny, dict) or not tiny:
+        raise SpecError(f"{path}: no \"tiny\" object (the sizes a CPU test run holds)")
+    ref = config.get("reference")
+    if not isinstance(ref, str) or not ref.isidentifier():
+        raise SpecError(f"{path}: no \"reference\" naming a package under benchmark/reference/")
+    if not (root / "benchmark" / "reference" / ref / "__init__.py").is_file():
+        raise SpecError(f"{path}: \"reference\" {ref!r} is no package under "
+                        "benchmark/reference/")
+    return config
 
 
 def reports(metric: dict, cell: str, e2e_names=None) -> bool:
@@ -94,7 +121,7 @@ def find_cell(name: str, bench: dict | None = None, root: Path = ROOT) -> Cell:
             raise SpecError(f"cell {name!r}: per-layer metric {m['name']!r} moves "
                             f"{m['moves']!r}, which the cell does not report")
     return Cell(name=name, entry=entry,
-                config=_load_json(root / conf["file"], f"configuration {conf['name']!r}"),
+                config=_load_config(root / conf["file"], conf["name"], root),
                 traffic=_load_json(here / "workloads" / f"{name}.json", f"traffic of {name!r}"),
                 limits=_load_json(here / "limits" / f"{name}.json", f"limits of {name!r}"),
                 end_to_end=e2e, per_layer=per_layer)

@@ -83,3 +83,20 @@ def test_control_is_not_correct(name):
     got, ctrl = C.judge(cell, 11, "cpu", win.prev, win.state, fp, control=True)
     assert all(got[k] <= v for k, v in cell.limits.items()), got
     assert any(ctrl[k] > v for k, v in cell.limits.items()), ctrl
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_reference_steps_the_state_in_its_own_classes(name):
+    """The program's state handed to the configuration's reference is
+    rebuilt in that reference's classes, every tensor a copy."""
+    from benchmark.reference.state import MODULES, adopt
+
+    cell = tiny_cell(name)
+    _, state = spec.builder(cell.config["name"]).build(cell.config, cell.traffic, 13, "cpu")
+    got = adopt(state, None, cell.reference)
+    for obj, mine in ((got, state), (got.dyn, state.dyn), (got.aero, state.aero)):
+        cls = type(obj)
+        assert cls.__module__ == f"{cell.reference}.{MODULES[cls.__name__]}"
+        assert cls is not type(mine) and cls.__name__ == type(mine).__name__
+    assert got.aero.num.data_ptr() != state.aero.num.data_ptr()
+    assert torch.equal(got.aero.num, state.aero.num)

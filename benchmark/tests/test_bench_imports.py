@@ -1,6 +1,8 @@
-"""Nothing the benchmark runs loads JAX or the JAX package, and the plain
-reference loads nothing of the program (top-level module names compared
-whole: the port's name begins with the JAX package's)."""
+"""Nothing the benchmark runs loads JAX or the JAX package, and no plain
+reference loads anything of the program: every reference package is
+imported and each configuration is built and stepped by its own
+(top-level module names compared whole: the port's name begins with the
+JAX package's)."""
 
 import ast
 import json
@@ -31,13 +33,13 @@ import benchmark.run, benchmark.control
 REFERENCE = """
 import importlib, pkgutil
 import benchmark.reference as R
-from benchmark.builders import REFERENCE
 from benchmark.tests.tiny import tiny_cell
 for m in pkgutil.walk_packages(R.__path__, "benchmark.reference."):
     importlib.import_module(m.name)
 for w in spec.load_benchmark()["workloads"]:
     c = tiny_cell(w["name"])
-    model, s = spec.builder(c.config["name"]).build(c.config, c.traffic, 7, "cpu", root=REFERENCE)
+    model, s = spec.builder(c.config["name"]).build(c.config, c.traffic, 7, "cpu",
+                                                    root=c.reference)
     model(s)
 """
 

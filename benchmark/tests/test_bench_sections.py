@@ -89,6 +89,8 @@ def test_no_program_spans(tmp_path):
 
 
 def test_readers_unmoved_by_sections(made_up):
+    """The span metrics read the layers of ``run.sections`` (None without
+    spans); every other reader is unmoved by them."""
     bench = spec.load_benchmark()
     run = cell.Run(cell=spec.find_cell("em_uniform.p1000"), traced=True, setup_s=10.0,
                    build_s=1.0, kernel_load_s=0.5, steps=12, window_s=1.2, peak_bytes=2 ** 30,
@@ -98,7 +100,13 @@ def test_readers_unmoved_by_sections(made_up):
     names = [m["name"] for m in bench["end_to_end"] + bench["per_layer"]]
     before = {n: spec.reader(n).read(run) for n in names}
     run.sections = sections.read(made_up)
-    assert {n: spec.reader(n).read(run) for n in names} == before
+    after = {n: spec.reader(n).read(run) for n in names}
+    lay = sections.layers(run.sections)
+    assert set(lay) <= set(names) and len(lay) == 6
+    assert all(before[n] is None for n in lay)
+    assert {n: after[n] for n in lay} == lay
+    assert {n: v for n, v in after.items() if n not in lay} == {
+        n: v for n, v in before.items() if n not in lay}
 
 
 def test_tiny_cell_profiled(tmp_path):

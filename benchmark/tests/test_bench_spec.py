@@ -113,3 +113,34 @@ def test_no_result_without_the_program(tmp_path):
                          cwd=tmp_path, capture_output=True, text=True, timeout=300,
                          env={"PATH": "/usr/bin:/bin", "HOME": str(tmp_path)})
     assert out.returncode != 0 and not out.stdout.strip()
+
+
+@pytest.mark.parametrize("key,value", [("tiny", None), ("reference", None),
+                                       ("reference", "no_such_reference")])
+def test_a_configuration_without_tiny_or_reference_is_refused_by_name(tmp_path, bench, key,
+                                                                      value):
+    """A configuration file without its CPU test sizes or its plain
+    reference is refused, naming the file, before any test runs it."""
+    shutil.copytree(ROOT / "benchmark", tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    conf = bench["configs"][0]
+    path = tmp_path / conf["file"]
+    data = json.loads(path.read_text())
+    data.pop(key) if value is None else data.update({key: value})
+    path.write_text(json.dumps(data))
+    cell = next(w["name"] for w in bench["workloads"] if w["config"] == conf["name"])
+    with pytest.raises(spec.SpecError, match=re.escape(str(path)) + f'.*"{key}"'):
+        spec.find_cell(cell, bench, root=tmp_path)
+
+
+@pytest.mark.parametrize("root", ["wrf_partmc_tpu", "benchmark", "benchmark.builders",
+                                  "benchmark.reference", "benchmark.reference.wpmc_plain.ops",
+                                  "benchmark.reference.no-such"])
+def test_builders_take_the_program_or_a_reference_package_alone(root):
+    from benchmark import builders
+
+    with pytest.raises(ValueError, match="neither"):
+        builders.module(root, "grid")
+    assert builders.module(builders.PROGRAM, "grid").__name__ == "wrf_partmc_tpu_torch.grid"
+    assert builders.module("benchmark.reference.wpmc_plain", "grid").__file__.endswith(
+        "benchmark/reference/wpmc_plain/grid.py")

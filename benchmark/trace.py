@@ -10,6 +10,10 @@
 - :func:`read_trace`: the profiler's chrome trace of the profiled phase:
   the union of device activity, each kernel's device time, the launches,
   and the longest idle gaps named by the host operation under them.
+- :func:`read_counters`, :func:`counter_change`: copies of the program's
+  counters (dicts of numbers, ``"package.module:NAME"``) before and after
+  the window, and what the window added; the program's counters are
+  never reset.
 """
 
 from __future__ import annotations
@@ -33,6 +37,31 @@ def resolve(site: str):
     """(module, attribute) of ``"package.module:attribute"``."""
     mod, attr = site.split(":")
     return importlib.import_module(mod), attr
+
+
+def read_counters(sites) -> dict:
+    """``{site: a copy of the dict}`` of each ``"package.module:NAME"`` in
+    ``sites`` that the program has; a site whose module or name it lacks
+    (an older commit) is left out."""
+    out = {}
+    for site in dict.fromkeys(sites):
+        name, attr = site.split(":")
+        try:
+            mod = importlib.import_module(name)
+        except ModuleNotFoundError as e:
+            if e.name and (name == e.name or name.startswith(e.name + ".")):
+                continue
+            raise
+        counts = getattr(mod, attr, None)
+        if isinstance(counts, dict):
+            out[site] = dict(counts)
+    return out
+
+
+def counter_change(before: dict, after: dict) -> dict:
+    """``{site: {name: after - before}}`` of two :func:`read_counters`."""
+    return {site: {k: v - before[site].get(k, 0) for k, v in now.items()}
+            for site, now in after.items()}
 
 
 class Spans:
