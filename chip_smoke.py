@@ -25,6 +25,11 @@ Phases, each printed on its own line and each fatal on failure:
    sum (``k5_hold``), timed like K1, its library call the plain version's
    [N, 60] @ [60, 45] ``torch.matmul`` alone and its bound the bytes or
    its float32 multiply-adds (``k5_bound``);
+   K6 (``move_ranks_cuda``, the transport's move draw, open-edge drop and
+   class ranks) at the em_uniform [10, 40, 40, 1280] and CARES
+   [24, 72, 72, 128] slots, bit for bit against the plain chain, timed like
+   K1, its library yardstick the ranks from a stable ``torch.sort`` and
+   its bound the bytes (``k6_bound``);
    The kernel times come from two methods: K1's is device time per launch
    from a CUDA graph of 100 wrapper calls replayed between two events (the
    replays read the same inputs, so below the 50 MB L2 they come from L2:
@@ -341,13 +346,14 @@ def _rand_unique_dst(gen, C, L1, L2, drop_frac, device):
 
 
 def _kernel_fns():
-    from wrf_partmc_tpu_torch.ops import mie_fit, place, threefry, tridiag
+    from wrf_partmc_tpu_torch.ops import mie_fit, moves, place, threefry, tridiag
 
     return {"thomas_solve": tridiag.thomas_solve,
             "scatter_rows": place.scatter_rows_cuda,
             "gather_rows": place.gather_rows_cuda,
             "threefry_draw": threefry.threefry_draw,
-            "mie_fit_bulk": mie_fit.mie_fit_bulk}
+            "mie_fit_bulk": mie_fit.mie_fit_bulk,
+            "move_ranks": moves.move_ranks_cuda}
 
 
 # kernels that only the paths with the aerosol optics launch (CARES and its
@@ -808,9 +814,89 @@ def check_mie_fit(gen, shapes):
     return res
 
 
+def k6_bound(n_class: int, shape) -> tuple:
+    """(ms, "bytes") for K6 on [nz, ny, nx, P] slots: u, u2, num and
+    w_class read and dcode and rank_p written once (24 bytes a slot), each
+    cell's four face probabilities and R row per class read once and its
+    [nz + 4] counts written once."""
+    nz, ny, nx, P = shape
+    cells = nz * ny * nx
+    n_bytes = 24.0 * cells * P + 4.0 * cells * (n_class * (4 + nz) + nz + 4)
+    return bound(n_bytes)
+
+
+def sort_ranks(dcode, D: int):
+    """The class ranks and counts from a stable ``torch.sort`` of the codes
+    (the library yardstick of K6's ranks; the port never calls it)."""
+    import torch
+
+    C, P = dcode.shape
+    codes, order = torch.sort(dcode, dim=-1, stable=True)
+    first = torch.searchsorted(codes, codes)
+    pos = torch.arange(P, device=dcode.device, dtype=torch.int64).expand(C, P)
+    rank = torch.empty_like(order).scatter_(1, order, pos - first)
+    rank = torch.where(dcode >= 0, rank, 0)
+    cnt = torch.stack([(dcode == d).sum(-1) for d in range(D)], -1)
+    return rank, cnt
+
+
+def check_move_ranks(gen, shapes):
+    """K6 (``move_ranks_cuda``) at (classes, slot shape, edges): four fifths
+    of the slots alive, random classes, face probabilities and
+    row-stochastic R; ``dcode``, ``rank_p`` and ``cnt`` bit for bit against
+    the plain chain (``moves.move_ranks_plain``) on the card; device time (a
+    CUDA graph of wrapper calls), call time, the plain chain's call time, the
+    library yardstick (class ranks and counts from a stable ``torch.sort``
+    of K6's codes, the ranks alone) and the bound."""
+    import math
+
+    import torch
+
+    from wrf_partmc_tpu_torch.ops import moves
+
+    n_class, shape, edges = shapes
+    nz, ny, nx, P = shape
+    edges = moves.Edges(*edges)
+    r = lambda sh: torch.rand(sh, generator=gen, device="cuda")
+    u, u2 = r(shape), r(shape)
+    num = torch.where(r(shape) < 0.8, 1e6, 0.0)
+    w_class = torch.randint(0, n_class, shape, generator=gen, device="cuda",
+                            dtype=torch.int32)
+    ph = [0.15 * r((n_class, nz, ny, nx)) for _ in range(4)]
+    R = r((n_class, ny, nx, nz, nz))
+    R_cum = torch.cumsum(R / R.sum(-1, keepdim=True), dim=-1)
+    del R
+    args = (u, u2, num, w_class, ph, R_cum, edges)
+    run = lambda: moves.move_ranks_cuda(*args)
+    plain = lambda: moves.move_ranks_plain(*args)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dcode", "rank_p", "cnt"), got, want):
+        require(a.dtype == b.dtype and torch.equal(a, b),
+                f"K6 {n_class} classes {list(shape)} {tuple(edges)}: {name} not bit-equal "
+                "to the plain chain")
+    dcode = got[0]
+    lib_rank, lib_cnt = sort_ranks(dcode, nz + 4)
+    require(torch.equal(lib_rank, got[1].long()) and torch.equal(lib_cnt.float(), got[2]),
+            f"K6 {list(shape)}: the sorted ranks differ")
+    del got, want, lib_rank, lib_cnt
+    big = math.prod(shape) > 4_000_000
+    res = dict(max_abs_err=0.0, ms=graph_ms(run, calls=20 if big else 100),
+               call_ms=call_ms(run, calls=20 if big else 100),
+               plain_ms=call_ms(plain, calls=3 if big else 10),
+               library_ms=cuda_ms(lambda: sort_ranks(dcode, nz + 4), reps=5))
+    res["bound_ms"], res["bound_by"] = k6_bound(n_class, shape)
+    print(f"[kernels] K6 move_ranks {n_class} classes {list(shape)} edges {tuple(edges)}: "
+          f"bit-equal to the plain chain; device {res['ms']:.4f} ms, call "
+          f"{res['call_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, library (stable sort "
+          f"ranks) {res['library_ms']:.4f} ms, bound {res['bound_ms']:.6f} ms "
+          f"({res['bound_by']}), share {res['bound_ms'] / res['ms']:.3f}")
+    return res
+
+
 CHECKS = {"thomas_solve": check_thomas, "scatter_rows": check_scatter,
           "gather_rows": check_gather, "threefry_draw": check_threefry,
-          "mie_fit_bulk": check_mie_fit}
+          "mie_fit_bulk": check_mie_fit, "move_ranks": check_move_ranks}
 CHECKED = {k: set() for k in CHECKS}     # argument shapes already held
 
 
@@ -841,6 +927,12 @@ def vdiff_shapes(nz, ny, nx, moist, chem):
     ``moist`` and ``chem`` deep."""
     one = (nz, ny, nx)
     return k1_shapes(one, (one, one, one, (moist, *one), (chem, *one), one))
+
+
+# K6's argument keys (classes, slot shape, edges) at the em_uniform and
+# CARES shapes
+K6_EM_UNIFORM = (1, (10, 40, 40, 1280), (0, 0, 40, 40, False, False))
+K6_CARES = (1, (24, 72, 72, 128), (0, 0, 72, 72, True, True))
 
 
 def phase_kernels(kernels: dict):
@@ -877,9 +969,13 @@ def phase_kernels(kernels: dict):
     from wrf_partmc_tpu_torch.models.partmc.optics import WAVELENGTHS
 
     k5 = [hold(kernels, gen, "mie_fit_bulk", (CARES_CELLS, 128, WAVELENGTHS))]
+    # K6: the em_uniform transport's slots (periodic) and the CARES shape's
+    # (open on both axes)
+    k6 = [hold(kernels, gen, "move_ranks", K6_EM_UNIFORM),
+          hold(kernels, gen, "move_ranks", K6_CARES)]
     for name, res, main in (("thomas_solve", k1, 1), ("scatter_rows", k2, 0),
                             ("gather_rows", k3, 0), ("threefry_draw", k4, 0),
-                            ("mie_fit_bulk", k5, 0)):
+                            ("mie_fit_bulk", k5, 0), ("move_ranks", k6, 0)):
         kernels[name].update({k: res[main][k] for k in KEYS})
     torch.cuda.empty_cache()
 
@@ -3769,6 +3865,10 @@ def main(argv=None) -> int:
                              replaces="wrf_partmc_tpu/models/partmc/mie.py:255 fit_lookup + "
                                       "optics.py:184 bulk sums (XLA)",
                              callers=["bulk_optical_props", "block CARES"]),
+        "move_ranks": dict(route="cuda", source="wrf_partmc_tpu_torch/csrc/moves.cu",
+                           replaces="wrf_partmc_tpu/models/coupled/transport.py sample_moves, "
+                                    "open_boundary_drop and rebucket's class ranks (XLA)",
+                           callers=["transport", "block transport"]),
     }
     try:
         phase_card()

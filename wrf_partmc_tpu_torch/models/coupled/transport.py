@@ -11,7 +11,9 @@ to the neighbouring rank.
 
 The rebucket keeps the reference's slot layout exactly: within-cell ranks of
 each destination class are a per-class exclusive cumsum (the reference's bf16
-triangular matmul gives the same integers), the vertical ranks are
+triangular matmul gives the same integers; on the card the move draw, the
+open-edge drop and these ranks are one launch of kernel K6,
+``ops/moves.py``), the vertical ranks are
 column-global with a random level rotation, the caps are
 ``max(16, min(P, P//16))``, and the full 33-channel payload moves in one
 ``scatter_rows`` (T1, kernel K2) and one ``scatter_rows`` + ``gather_rows``
@@ -24,6 +26,7 @@ import torch
 
 from ...config import Config
 from ...grid import Grid
+from ...ops import moves
 from ...ops.advection import OutflowProbs
 from ...ops.place import gather_rows, scatter_rows
 from ...ops.stencil import on_grid, shift
@@ -177,39 +180,30 @@ def preweight_acceptance(aero: AeroState, ph, R, cfg: Config, mesh: Mesh | None 
     return torch.clamp(acc, min=1.0 / 8.0)
 
 
-def _by_class(field_cf, w_class):
-    """field_cf [n_class, nz, ny, nx] -> per-particle values [nz, ny, nx, P]
-    (an exact gather by each particle's class)."""
-    f = field_cf.movedim(0, -1)
-    return torch.gather(f, -1, w_class.long())
-
-
 def sample_moves(aero: AeroState, ph, R, key):
     """Raw per-particle move draw: (dj, di, dest_k, horizontal), each
     [nz, ny, nx, P].  A particle first tries one horizontal face, otherwise
     draws its new level from its column's R row (inverse CDF)."""
-    nz = aero.num.shape[0]
-    dev = aero.num.device
+    u, u2 = _move_uniforms(aero, key)
+    return moves.draw_moves(u, u2, aero.w_class, ph, torch.cumsum(R, dim=-1))
+
+
+def _move_uniforms(aero: AeroState, key):
+    """The move draw's two uniforms [nz, ny, nx, P]: the face, then the level."""
     k_h, k_v = rng.split(key)
-    pxm, pxp, pym, pyp = (_by_class(p, aero.w_class) for p in ph)
+    return (rng.uniform(k_h, aero.num.shape, aero.num.device),
+            rng.uniform(k_v, aero.num.shape, aero.num.device))
 
-    u = rng.uniform(k_h, aero.num.shape, dev)
-    c1 = pxm
-    c2 = c1 + pxp
-    c3 = c2 + pym
-    c4 = c3 + pyp
-    di = torch.where(u < c1, -1, torch.where(u < c2, 1, 0))
-    dj = torch.where((u >= c2) & (u < c3), -1,
-                     torch.where((u >= c3) & (u < c4), 1, 0))
-    horizontal = u < c4
 
-    u2 = rng.uniform(k_v, aero.num.shape, dev)
-    R_cum = torch.cumsum(R, dim=-1)                # [C, ny, nx, src, dst]
-    Rt = R_cum.permute(4, 0, 3, 1, 2)              # [dst, C, src, ny, nx]
-    dest = torch.zeros(aero.num.shape, dtype=torch.int64, device=dev)
-    for d in range(nz):
-        dest += (u2 >= _by_class(Rt[d], aero.w_class))
-    return dj, di, torch.clamp(dest, 0, nz - 1), horizontal
+def _edges(cfg: Config, shape, grid: Grid | None = None) -> moves.Edges:
+    """The open-edge drop's view of a block of ``shape`` [.., ny_l, nx_l, P]
+    cells: the global indices of the cells of ``grid`` (the whole domain, or
+    a rank's block; None: the block's own extents)."""
+    nyl, nxl = shape[1], shape[2]
+    ny, nx = (nyl, nxl) if grid is None else grid.global_shape
+    iy0, ix0 = (0, 0) if grid is None else grid.offsets
+    return moves.Edges(iy0, ix0, ny, nx, not cfg.boundary.periodic_y,
+                       not cfg.boundary.periodic_x)
 
 
 def open_boundary_drop(dj, di, horizontal, cfg: Config, grid: Grid | None = None):
@@ -217,17 +211,25 @@ def open_boundary_drop(dj, di, horizontal, cfg: Config, grid: Grid | None = None
     boundary (the reference's outflow discard), from the global indices of
     the cells of ``grid`` (the whole domain, or a rank's block; None: the
     arrays' own extents)."""
-    _, nyl, nxl, _ = dj.shape
-    ny, nx = (nyl, nxl) if grid is None else grid.global_shape
-    iy0, ix0 = (0, 0) if grid is None else grid.offsets
-    drop = torch.zeros(dj.shape, dtype=torch.bool, device=dj.device)
-    if not cfg.boundary.periodic_x:
-        gi = ix0 + torch.arange(nxl, device=dj.device).reshape(1, 1, nxl, 1) + di
-        drop = drop | (horizontal & ((gi < 0) | (gi >= nx)))
-    if not cfg.boundary.periodic_y:
-        gj = iy0 + torch.arange(nyl, device=dj.device).reshape(1, nyl, 1, 1) + dj
-        drop = drop | (horizontal & ((gj < 0) | (gj >= ny)))
-    return drop
+    return moves.edge_drop(dj, di, horizontal, _edges(cfg, dj.shape, grid))
+
+
+# transport steps, and the K6 launches among them (one a step on the card)
+K6_COUNTS = {"steps": 0, "k6": 0}
+
+
+def move_ranks(aero: AeroState, ph, R, key, cfg: Config, grid: Grid | None = None):
+    """The move draw of :func:`sample_moves` through the open-edge drop to
+    the destination codes, within-cell class ranks and class counts
+    (``dcode``, ``rank_p``, ``cnt``; ``ops/moves.py``): one K6 launch on a
+    CUDA state, the plain chain on the CPU."""
+    u, u2 = _move_uniforms(aero, key)
+    launched = moves.move_ranks_cuda.launches
+    out = moves.move_ranks(u, u2, aero.num, aero.w_class, ph, torch.cumsum(R, dim=-1),
+                           _edges(cfg, aero.num.shape, grid))
+    K6_COUNTS["steps"] += 1
+    K6_COUNTS["k6"] += moves.move_ranks_cuda.launches - launched
+    return out
 
 
 def _caps(cfg: Config, P: int):
@@ -268,12 +270,22 @@ def rebucket(aero: AeroState, dest_k, dj, di, horizontal, drop, acc, cfg: Config
     """Move particles to their sampled destination cells; ``drop`` marks
     particles leaving an open domain, which vanish.  ``roll``: the
     horizontal shift of ``_reorder_minis`` (a block's edge exchange).
-    Returns (new_aero, diag) with the overflow counters.
+    Returns (new_aero, diag) with the overflow counters: the plain
+    destination codes and class ranks (``ops/moves.py``), then
+    :func:`rebucket_codes`."""
+    dcode = moves.move_codes(aero.alive, dest_k, dj, di, horizontal, drop)
+    rank_p, cnt = moves.class_ranks(dcode, aero.num.shape[0] + 4)
+    return rebucket_codes(aero, dcode, rank_p, cnt, acc, cfg, key, roll)
 
-    * ranks: every mover's within-cell rank among movers of its destination
-      class (0..nz-1 a vertical target level, nz+d a horizontal face
-      W/E/S/N), plus a column-global offset for vertical classes taken over
-      source levels in a randomly rotated order;
+
+def rebucket_codes(aero: AeroState, dcode, rank_p, cnt, acc, cfg: Config, key, roll=None):
+    """The rebucket from each slot's destination class ``dcode`` [C, P]
+    (0..nz-1 a vertical target level, nz+d a horizontal face W/E/S/N,
+    ``moves.STAY``, ``moves.GONE``), its within-cell rank ``rank_p`` among
+    the movers of its class and the class counts ``cnt`` [C, nz + 4]:
+
+    * ranks: a column-global offset for vertical classes taken over source
+      levels in a randomly rotated order;
     * T1: movers within their pool's cap are scattered into per-cell
       mini-regions (kernel K2); the pool's departing number is carried by
       the shipped movers (conservation scale);
@@ -293,25 +305,8 @@ def rebucket(aero: AeroState, dest_k, dj, di, horizontal, drop, acc, cfg: Config
     k_thin, k_rot = rng.split(key)
 
     with span("wpmc.transport.ranks"):
-        kk = torch.arange(nz, device=dev).reshape(nz, 1, 1, 1)
-        alive = aero.alive & ~drop
-        vert = (~horizontal) & (dest_k != kk)
-        hdir = torch.where(di < 0, 0, torch.where(di > 0, 1, torch.where(dj < 0, 2, 3)))
-        dcode4 = torch.where(vert, dest_k, torch.where(horizontal, nz + hdir, -1))
-        dcode = torch.where(alive, dcode4, -1).reshape(C, P)
         mover = dcode >= 0
         num_flat = aero.num.reshape(C, P)
-
-        # within-cell rank of each mover among its destination class (exclusive
-        # per-class cumsum), class counts and per-class number
-        rank_p = torch.zeros((C, P), dtype=torch.int64, device=dev)
-        cnt, masks = [], []
-        for d in range(D):
-            m = dcode == d
-            rank_p = torch.where(m, torch.cumsum(m, dim=-1) - 1, rank_p)
-            cnt.append(torch.sum(m, dim=-1, dtype=torch.float32))
-            masks.append(m)
-        cnt = torch.stack(cnt, dim=-1)                  # [C, D]
         cnt4 = cnt.reshape(nz, nyl, nxl, D)
         # column-global vertical ranks, source levels visited in a randomly
         # rotated order
@@ -320,24 +315,29 @@ def rebucket(aero: AeroState, dest_k, dj, di, horizontal, drop, acc, cfg: Config
         offs4 = torch.roll(torch.cumsum(a, dim=0) - a, rot, dims=0)
         is_v_d = torch.arange(D, device=dev) < nz
         offs_cd = torch.where(is_v_d, offs4, 0.0).reshape(C, D)
-        dsafe = dcode.clamp(min=0)
+        dsafe = dcode.clamp(min=0).long()
         offs_p = torch.where(mover, torch.gather(offs_cd, 1, dsafe), 0.0)
-        rank_g = (rank_p + offs_p.to(torch.int64)) * mover
+        rank_g = (rank_p + offs_p.to(torch.int32)) * mover
+        del offs_p
 
         is_v_p = dcode < nz
         cap_p = torch.where(is_v_p, Av, Ah)
         ship = mover & (rank_g < cap_p)
         base_p = torch.where(is_v_p, dcode * Av, nz * Av + (dcode - nz) * Ah)
         dst1 = torch.where(ship, base_p + rank_g, -1).to(torch.int32)
+        del rank_g, is_v_p, cap_p, base_p
 
     with span("wpmc.transport.t1"):
         # pool conservation: shipped movers of each pool carry the pool's whole
         # departing number (vertical pools span the column)
         shipped_num = torch.where(ship, num_flat, 0.0)
-        tot_cd = torch.stack([torch.sum(torch.where(m, num_flat, 0.0), dim=-1)
-                              for m in masks], -1)
-        shp_cd = torch.stack([torch.sum(torch.where(m, shipped_num, 0.0), dim=-1)
-                              for m in masks], -1)
+        tot_cd, shp_cd = [], []
+        for d in range(D):                  # one class's mask at a time
+            m = dcode == d
+            tot_cd.append(torch.sum(torch.where(m, num_flat, 0.0), dim=-1))
+            shp_cd.append(torch.sum(torch.where(m, shipped_num, 0.0), dim=-1))
+        del m, shipped_num
+        tot_cd, shp_cd = torch.stack(tot_cd, -1), torch.stack(shp_cd, -1)
         tot4 = tot_cd.reshape(nz, nyl, nxl, D)
         shp4 = shp_cd.reshape(nz, nyl, nxl, D)
         tot_pool = torch.where(is_v_d, torch.sum(tot4, 0, keepdim=True), tot4)
@@ -345,6 +345,7 @@ def rebucket(aero: AeroState, dest_k, dj, di, horizontal, drop, acc, cfg: Config
         sc4 = torch.where(shp_pool > 0.0, tot_pool / torch.clamp(shp_pool, min=0.0), 1.0)
         scale_p = torch.gather(sc4.reshape(C, D), 1, dsafe)
         num_all = torch.where(ship, num_flat * torch.clamp(scale_p, min=1.0), num_flat)
+        del dsafe, scale_p, ship
 
         cnt_pool_v = torch.sum(cnt4, dim=0)[..., :nz]
         ovf_class = (torch.sum(torch.clamp(cnt_pool_v - Av, min=0.0))
@@ -370,7 +371,7 @@ def rebucket(aero: AeroState, dest_k, dj, di, horizontal, drop, acc, cfg: Config
         tot_arr = torch.sum(a_num_th, dim=-1)
         arr[:, 0, :] = a_num_th
 
-        stay_keep = alive.reshape(C, P) & ~mover
+        stay_keep = dcode == moves.STAY
         free = ~stay_keep
         n_free = torch.sum(free, dim=-1)
         f_rank = torch.cumsum(free, dim=-1) - 1
@@ -447,10 +448,9 @@ def transport_step_sharded(aero: AeroState, probs: OutflowProbs, xkhh, exch_h,
     with span("wpmc.transport.sample"):
         k = rng.fold_in(rng.fold_in(key, mesh.iy), mesh.ix)
         k_mv, k_thin = rng.split(k)
-        dj, di, dest_k, horizontal = sample_moves(aero, ph, R, k_mv)
-        drop = open_boundary_drop(dj, di, horizontal, cfg, grid)
-    new, diag = rebucket(aero, dest_k, dj, di, horizontal, drop, acc, cfg, k_thin,
-                         roll=edge_roll(mesh))
+        dcode, rank_p, cnt = move_ranks(aero, ph, R, k_mv, cfg, grid)
+    new, diag = rebucket_codes(aero, dcode, rank_p, cnt, acc, cfg, k_thin,
+                               roll=edge_roll(mesh))
     names = list(diag)
     total = halo.all_reduce_sum(torch.stack([diag[n] for n in names]), mesh)
     return new, dict(zip(names, total.unbind(0)))
@@ -473,6 +473,5 @@ def transport_step(aero: AeroState, probs: OutflowProbs, xkhh, exch_h,
         R = vertical_operator(probs, exch_h, grid, dt, rho3, dz3)
         acc = preweight_acceptance(aero, ph, R, cfg)
     with span("wpmc.transport.sample"):
-        dj, di, dest_k, horizontal = sample_moves(aero, ph, R, k_mv)
-        drop = open_boundary_drop(dj, di, horizontal, cfg)
-    return rebucket(aero, dest_k, dj, di, horizontal, drop, acc, cfg, k_thin)
+        dcode, rank_p, cnt = move_ranks(aero, ph, R, k_mv, cfg)
+    return rebucket_codes(aero, dcode, rank_p, cnt, acc, cfg, k_thin)

@@ -39,6 +39,7 @@ _SIGNATURES = {
     "wpt_gather_rows_f32": [_P, _P, _P, _LL, _I, _I, _I, _P],
     "wpt_threefry_draw": [_P, _LL, _LL, _LL, _I, _F, _F, _I, *[_LL] * 7, _P],
     "wpt_mie_fit_bulk": [*[_P] * 6, _LL, _I, _I, *[_F] * 10, _I, _P],
+    "wpt_move_ranks": [*[_P] * 12, _LL, *[_I] * 11, _P],
 }
 
 _lib = None
