@@ -24,7 +24,7 @@ Phases, each printed on its own line and each fatal on failure:
    path's sizes and indices, each sum within 2e-5 of its cell's extinction
    sum (``k5_hold``), timed like K1, its library call the plain version's
    [N, 60] @ [60, 45] ``torch.matmul`` alone and its bound the bytes or
-   its float32 multiply-adds (``k5_bound``);
+   its float32 multiply-adds (``benchmark/roofline.py``'s ``k5_bound``);
    K6 (``move_ranks_cuda``, the transport's move draw, open-edge drop and
    class ranks) at the em_uniform [10, 40, 40, 1280] and CARES
    [24, 72, 72, 128] slots, bit for bit against the plain chain, timed like
@@ -83,7 +83,7 @@ Phases, each printed on its own line and each fatal on failure:
     and each writer timed alone with its file's size;
 15. resume: from the step-6 npz and NetCDF restarts for 6 steps each, each
     final state bit-equal to the continuous run's;
-16. card against CPU, the two option sets (``OPTION_SETS``): one mesoscale
+16. card against CPU, the two option sets (``option_sets.OPTION_SETS``): one mesoscale
     step (YSU, slab LSM, radiation, WSM5, BMJ, sea salt) at 12x12x4 and one
     LES step (prognostic TKE, NBA, WENO5/3, Kessler) at 12x12x8;
 17. the mesoscale options path: 40x40x10, 1000 particles per cell
@@ -228,6 +228,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+from benchmark import roofline
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T_START = time.perf_counter()       # reset by main; the path lines print the time since
@@ -374,20 +376,6 @@ def read_counts():
             {k: set(fn.shapes) for k, fn in fns.items()})
 
 
-# the H100 SXM's peaks (NVIDIA's data sheet) for the bounds: device memory
-# and float32 outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-
-
-def bound(n_bytes: float, n_ops: float = 0.0):
-    """(ms, "bytes" or "operations"): the least time the card could take to
-    move ``n_bytes`` and do ``n_ops`` float32 operations."""
-    t_b = 1e3 * n_bytes / HBM_BYTES_PER_S
-    t_o = 1e3 * n_ops / FP32_OPS_PER_S
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-
-
 def _coefs(gen, dl_s, d_s, du_s):
     """Random diagonals: off-diagonals in [-1, 1), main diagonal
     4 + |N(0, 1)|, so every column is diagonally dominant."""
@@ -480,8 +468,8 @@ def check_thomas(gen, shapes):
                library_ms=library_ms(A, B, X))
     del A, B, X
     n_f = sum(math.prod(s) for s in f_s)
-    res["bound_ms"], res["bound_by"] = bound(
-        4 * (sum(math.prod(s) for s in (dl_s, d_s, du_s)) + 2 * n_f), 9 * n_f)
+    res["bound_ms"], res["bound_by"] = roofline.k1_bound(
+        sum(math.prod(s) for s in (dl_s, d_s, du_s)), n_f)
     lib = "null" if res["library_ms"] is None else f"{res['library_ms']:.4f} ms"
     print(f"[kernels] K1 thomas_solve coefficients {list(d_s)} fields "
           + " ".join(str(list(s)) for s in f_s)
@@ -504,26 +492,21 @@ def launch_floor():
     return res
 
 
-def scatter_bound(x, dst, L2):
-    """K2's least traffic for these inputs: the rows with a dst in [0, L2)
-    read once, the dst row read once, the whole output written once."""
-    C, CH, L1 = x.shape
-    moved = int(((dst >= 0) & (dst < L2)).sum())
-    return bound(4 * (moved * CH + C * L1 + C * CH * L2)), moved / (C * L1)
+def moved_rows(dst, L2) -> int:
+    """The rows K2 moves: those with a dst in [0, L2)."""
+    return int(((dst >= 0) & (dst < L2)).sum())
 
 
-def gather_bound(x, src):
-    """K3's least traffic for these inputs: each distinct source row read
-    once, the src row read once, the whole output written once."""
+def distinct_rows(src, L1) -> int:
+    """The source rows K3 reads: the distinct src values in [0, L1) of each
+    cell."""
     import torch
 
-    C, CH, L1 = x.shape
-    L2 = src.shape[1]
+    C = src.shape[0]
     valid = (src >= 0) & (src < L1)
     hit = torch.zeros((C, L1 + 1), dtype=torch.bool, device=src.device)
     hit.scatter_(1, torch.where(valid, src, L1).long(), True)
-    rows = int(hit[:, :L1].sum())
-    return bound(4 * (rows * CH + C * L2 + C * CH * L2)), rows / (C * L1)
+    return int(hit[:, :L1].sum())
 
 
 def time_scatter(x, dst, L2, label):
@@ -553,7 +536,9 @@ def time_scatter(x, dst, L2, label):
     cms = call_ms(lambda: place.scatter_rows_cuda(x, dst, L2), calls=20)
     pms = cuda_ms(lambda: place.scatter_rows_plain(x, dst, L2))
     lms = cuda_ms(lambda: torch.scatter(zeros, 2, idx, x))
-    (bms, by), share = scatter_bound(x, dst, L2)
+    moved = moved_rows(dst, L2)
+    bms, by = roofline.scatter_bound(C, CH, L1, L2, moved)
+    share = moved / (C * L1)
     print(f"[kernels] K2 scatter_rows {label}: bit-exact, rows moved {share:.4f}; kernel "
           f"{ms:.4f} ms call {cms:.4f} ms plain {pms:.4f} ms library {lms:.4f} ms bound "
           f"{bms:.4f} ms ({by}) share of bound {bms / ms:.3f}")
@@ -587,7 +572,9 @@ def time_gather(x, src, label):
     cms = call_ms(lambda: place.gather_rows_cuda(x, src), calls=20)
     pms = cuda_ms(lambda: place.gather_rows_plain(x, src))
     lms = cuda_ms(lambda: torch.gather(xp, 2, idx))
-    (bms, by), share = gather_bound(x, src)
+    rows = distinct_rows(src, L1)
+    bms, by = roofline.gather_bound(C, CH, L1, L2, rows)
+    share = rows / (C * L1)
     print(f"[kernels] K3 gather_rows {label}: bit-exact, source rows read {share:.4f}, "
           f"output rows filled {float(((src >= 0) & (src < L1)).float().mean()):.4f}; "
           f"kernel {ms:.4f} ms call {cms:.4f} ms plain {pms:.4f} ms library {lms:.4f} ms "
@@ -621,45 +608,35 @@ def check_gather(gen, shapes):
     return time_gather(x, src, f"{list(x_shape)}->{L2}")
 
 
-# K4's least work, counted from csrc/threefry.cu: the hash is 74 int32
-# operations an element (the counter split, two key adds, 20 rounds of
-# add, rotate and xor, 10 injection adds, the output xor); a block draw's
-# index 11 more (three divisions, three remainders, five multiply-adds);
-# the uniform 2 int32 (shift, or) and 4 float32 (subtract, multiply, add,
-# clamp).  The normal adds 6 float32 and 16 float64 (eight emulated fused
-# multiply-adds) in erfinv, one float64 root where w >= 5, and its log1p
-# either 7 float32 and 28 float64 (the rational, |u^2| below sqrt(2) - 1)
-# or 4 int32, 12 float32 and 20 float64 (the log).  Rates: float32 67e12
-# (FP32_OPS_PER_S), float64 34e12 (NVIDIA's data sheet, outside the tensor
-# cores), int32 33.5e12 (132 SMs x 128 lanes at the 1.98 GHz that gives the
-# float32 figure, one operation a lane and clock: Hopper issues integer
-# adds to its FMA lanes as well, and a first count at 64 int32 lanes an SM
-# put the measured kernel below that bound).  Bound: the larger of the
-# bytes written at 3.35 TB/s and the slowest unit's share of the
-# operations these inputs need (each unit at its peak, all at once).
-INT32_OPS_PER_S = 33.5e12
-FP64_OPS_PER_S = 34e12
+# K4's least work (``roofline.k4_bound``), counted from csrc/threefry.cu:
+# the hash is 74 int32 operations an element (the counter split, two key
+# adds, 20 rounds of add, rotate and xor, 10 injection adds, the output
+# xor); a block draw's index 11 more (three divisions, three remainders,
+# five multiply-adds); the uniform 2 int32 (shift, or) and 4 float32
+# (subtract, multiply, add, clamp).  The normal adds 6 float32 and 16
+# float64 (eight emulated fused multiply-adds) in erfinv, one float64 root
+# where w >= 5, and its log1p either 7 float32 and 28 float64 (the rational,
+# |u^2| below sqrt(2) - 1) or 4 int32, 12 float32 and 20 float64 (the log).
+# Rates: float32 67e12 (FP32_OPS_PER_S), float64 34e12 (NVIDIA's data sheet,
+# outside the tensor cores), int32 33.5e12 (132 SMs x 128 lanes at the 1.98
+# GHz that gives the float32 figure, one operation a lane and clock: Hopper
+# issues integer adds to its FMA lanes as well, and a first count at 64
+# int32 lanes an SM put the measured kernel below that bound).  Bound: the
+# larger of the bytes written at 3.35 TB/s and the slowest unit's share of
+# the operations these inputs need (each unit at its peak, all at once).
 K4_TIMES = {}                # K4 argument key -> its check's result
 
 
-def k4_bound(mode: str, n: int, blocked: bool, u=None):
-    """(ms, "bytes" or "operations") for K4's draw of n elements; ``u`` is
-    the draw's uniform (the normal's branches depend on it)."""
+def normal_branches(u) -> tuple:
+    """(n_small, n_ge5) of a normal draw from its uniform ``u``: the
+    elements whose log1p takes the rational (u*u below sqrt(2) - 1), and
+    those with -log1p(-u*u) >= 5; (0, 0) without ``u``."""
     import torch
 
-    i32 = n * (74 + (11 if blocked else 0) + (2 if mode != "bits" else 0))
-    f32 = 4 * n if mode != "bits" else 0
-    f64 = 0
-    if mode == "normal":
-        a = (u.double() * u.double())
-        n_small = int((a < 0.41421356237309504880).sum())
-        n_ge5 = int((-torch.log1p(-a) >= 5.0).sum())
-        i32 += 4 * (n - n_small)
-        f32 += 6 * n + 7 * n_small + 12 * (n - n_small)
-        f64 += 16 * n + 28 * n_small + 20 * (n - n_small) + n_ge5
-    t_b = 1e3 * n * (8 if mode == "bits" else 4) / HBM_BYTES_PER_S
-    t_o = 1e3 * max(i32 / INT32_OPS_PER_S, f32 / FP32_OPS_PER_S, f64 / FP64_OPS_PER_S)
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+    if u is None:
+        return 0, 0
+    a = (u.double() * u.double())
+    return int((a < 0.41421356237309504880).sum()), int((-torch.log1p(-a) >= 5.0).sum())
 
 
 def check_threefry(gen, shapes):
@@ -699,7 +676,8 @@ def check_threefry(gen, shapes):
                call_ms=call_ms(run, calls=20 if big else 100),
                plain_ms=call_ms(plain, calls=3 if big else 20),
                library_ms=None)         # no PyTorch call draws threefry (torch.rand is Philox)
-    res["bound_ms"], res["bound_by"] = k4_bound(mode, n, blk is not None, u)
+    res["bound_ms"], res["bound_by"] = roofline.k4_bound(mode, n, blk is not None,
+                                                         *normal_branches(u))
     K4_TIMES[shapes] = res
     print(f"[kernels] K4 threefry_draw {mode} {list(shape)}"
           + ("" if blk is None else f" block {list(blk)}")
@@ -711,22 +689,8 @@ def check_threefry(gen, shapes):
     return res
 
 
-# K5's least work: each live slot takes the 60 x 45 multiply-adds of the
-# basis-weighted coefficients and, per band, 3 x 60 for the contraction and
-# 58 for the Chebyshev recurrence; float32 multiply-adds at half the
-# FP32_OPS_PER_S rate (67e12 counts a multiply-add as two operations).
-# Bytes: d, n, k and the number read once, the [3, W, C] sums written once.
-FMA_PER_S = FP32_OPS_PER_S / 2
 K5_TOL = dict(rtol=2e-5, floor=1e-6)    # of the cell's extinction sum (k5_hold)
 K5_CELL_AREA = 4000.0 * 4000.0          # the CARES cell's [m2]: tau = sum / area
-
-
-def k5_bound(C: int, P: int, W: int, live: int):
-    """(ms, "bytes" or "operations") for K5 on [C, P] slots of which
-    ``live`` carry a number, at W bands."""
-    t_b = 1e3 * (16.0 * C * P + 12.0 * W * C) / HBM_BYTES_PER_S
-    t_o = 1e3 * live * (60 * 45 + W * (3 * 60 + 58)) / FMA_PER_S
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
 def k5_inputs(gen, C: int, P: int):
@@ -803,7 +767,7 @@ def check_mie_fit(gen, shapes):
     T = torch.randn((C * P, mie._FIT_J), generator=gen, device="cuda")
     res["library_ms"] = cuda_ms(lambda: T @ coeffs, reps=5 if big else 10)
     del T
-    res["bound_ms"], res["bound_by"] = k5_bound(C, P, W, int((num != 0).sum()))
+    res["bound_ms"], res["bound_by"] = roofline.k5_bound(C, P, W, int((num != 0).sum()))
     print(f"[kernels] K5 mie_fit_bulk [{C},{P}] x {W} bands: sums within "
           f"{K5_TOL['rtol']:g} of the cell's extinction, floor {K5_TOL['floor']:g} of the "
           f"largest (max abs err {err:.3e}); "
@@ -822,7 +786,7 @@ def k6_bound(n_class: int, shape) -> tuple:
     nz, ny, nx, P = shape
     cells = nz * ny * nx
     n_bytes = 24.0 * cells * P + 4.0 * cells * (n_class * (4 + nz) + nz + 4)
-    return bound(n_bytes)
+    return roofline.bound(n_bytes)
 
 
 def sort_ranks(dcode, D: int):
@@ -1895,42 +1859,6 @@ def phase_cases():
     return shapes
 
 
-RUNNER_NAMELIST = """ &time_control
- history_interval = 1,
- restart          = .false.,
- /
- &domains
- e_we   = 41,
- e_sn   = 41,
- e_vert = 11,
- dx     = 2000.0,
- dy     = 2000.0,
- ztop   = 2000.0,
- /
- &dynamics
- chem_adv_opt  = 2,
- moist_adv_opt = 1,
- diff_opt      = 0,
- km_opt        = 4,
- /
- &partmc
- num_particles    = 1000,
- max_particles    = 1280,
- n_emit_slots     = 4,
- partmc_chem_dt   = 60.0,
- do_coagulation   = .true.,
- do_emission      = .true.,
- do_deposition    = .true.,
- do_transport     = .true.,
- do_mosaic        = .false.,
- record_removals  = .true.,
- record_aero_info = .true.,
- /
- &bdy_control
- periodic_x = .true.,
- periodic_y = .true.,
- /
-"""
 RUNNER_DIR = os.path.join(ROOT, "build", "runner")
 CELL = (10, 40, 40)
 HIST_VARS = dict(
@@ -1989,6 +1917,7 @@ def phase_runner(kernels: dict, steps: int = 12):
     from wrf_partmc_tpu_torch.models.coupled.driver import make_env
     from wrf_partmc_tpu_torch.models.partmc.bin_grid import make_bin_grid
     from wrf_partmc_tpu_torch.models.partmc.diagnostics import process
+    from wrf_partmc_tpu_torch.tools.sample_inputs import RUNNER_NAMELIST
     from wrf_partmc_tpu_torch.utils import io
 
     shutil.rmtree(RUNNER_DIR, ignore_errors=True)
@@ -2139,121 +2068,6 @@ def phase_resume(cs_full, argv, steps: int = 12):
     shutil.rmtree(RUNNER_DIR)
 
 
-# The two option sets beyond the em_uniform and CARES paths, each built by
-# ``run.build_model`` (tests/test_torch_options_coupled.py holds one step of
-# each against the JAX package):
-# - mesoscale: the runner's em_uniform model (2 km, dt 10 s, live dynamics,
-#   the runner's particle physics, chemistry off) with the YSU surface layer
-#   and PBL, the slab LSM, Dudhia and gray radiation, WSM5 (5 moist species),
-#   BMJ and sea salt, on a sounding saturated over water (at most 15 g/kg).
-#   That sounding is no published case: it opens BMJ's and WSM5's gates in
-#   every column, so the path's physics split is their all-columns cost;
-# - les: tests/test_les.py's convective LES (dx 50 m, ztop 800 m, dt 0.25 s)
-#   with the prognostic TKE closure, the NBA stresses, WENO5/WENO3 and
-#   Kessler, from the test's warm bubble with near-surface noise, with the
-#   warm_bubble case's particles; no emission (its dist is empty) and the
-#   runner's 60 s coagulation cadence.
-# For each: the full-width shape and the card-against-CPU shape.
-OPTION_SETS = {"mesoscale": ((40, 40, 10), (12, 12, 4)), "les": ((40, 40, 16), (12, 12, 8))}
-RH_MESOSCALE, QV_MAX_MESOSCALE = 1.0, 0.015
-
-
-def option_config(name: str, nx: int, ny: int, nz: int, n_part: int, cap: int):
-    """The ``Config`` of option set ``name`` at nx x ny x nz cells."""
-    from wrf_partmc_tpu_torch.config import (BoundaryConfig, Config, DomainConfig,
-                                             DynamicsConfig, PartmcConfig, validate_config)
-
-    particles = dict(num_particles=n_part, max_particles=cap, n_emit_slots=4,
-                     partmc_chem_dt=60.0, do_coagulation=True, do_emission=True,
-                     do_deposition=True, do_transport=True, do_mosaic=False)
-    periodic = BoundaryConfig(periodic_x=True, periodic_y=True)
-    if name == "mesoscale":
-        return validate_config(Config(
-            domain=DomainConfig(nx=nx, ny=ny, nz=nz, dx=2000.0, dy=2000.0),
-            dynamics=DynamicsConfig(dt=10.0, chem_adv_opt="mono", moist_adv_opt="pd",
-                                    diff_opt=0, km_opt=4, bl_physics=1,
-                                    sf_surface_physics=1, ra_physics=1, mp_physics=2,
-                                    cu_physics=2),
-            boundary=periodic, partmc=PartmcConfig(seasalt_param=1, **particles), n_moist=5))
-    return validate_config(Config(
-        domain=DomainConfig(nx=nx, ny=ny, nz=nz, dx=50.0, dy=50.0, ztop=800.0),
-        dynamics=DynamicsConfig(dt=0.25, n_sound=4, dyn_opt="arw", damp_opt=1, zdamp=200.0,
-                                sfs_opt=1, diff_opt=2, km_opt=2, h_adv_order="weno5",
-                                v_adv_order="weno3", mp_physics=1),
-        boundary=periodic, partmc=PartmcConfig(**dict(particles, do_emission=False))))
-
-
-def humid_sounding(dyn, grid, rh: float = RH_MESOSCALE, q_max: float = QV_MAX_MESOSCALE):
-    """``dyn`` with qv = ``rh`` times the saturation mixing ratio over water
-    at its temperature and pressure, at most ``q_max`` (the mass and
-    geopotential are not rebalanced: the first acoustic substeps adjust to
-    the water's weight)."""
-    import torch
-
-    from wrf_partmc_tpu_torch.models.dycore.state import replace, temperature, total_pressure
-    from wrf_partmc_tpu_torch.models.physics.thermo import saturation_mixing_ratio
-
-    qsat = saturation_mixing_ratio(temperature(dyn, grid), total_pressure(dyn, grid))
-    moist = dyn.moist.clone()
-    moist[0] = torch.clamp(rh * qsat, max=q_max)
-    return replace(dyn, moist=moist)
-
-
-def les_initial_dyn(cfg, grid):
-    """tests/test_les.py's dry warm bubble (1 K at 150 m, radius 120 m) with
-    0.2 K normal noise in the two lowest levels (``rng.normal`` on key 0,
-    the draw ``jax.random.normal`` makes there)."""
-    from wrf_partmc_tpu_torch.models.dycore.ideal import init_warm_bubble_arw
-    from wrf_partmc_tpu_torch.models.dycore.state import replace
-    from wrf_partmc_tpu_torch.utils import rng
-
-    s = init_warm_bubble_arw(cfg, grid, d_theta=1.0, z_center=150.0, z_radius=120.0)
-    thp = s.theta_p.clone()
-    thp[:2] = thp[:2] + rng.normal(rng.key(0), (2, grid.ny, grid.nx), thp.device) * 0.2
-    return replace(s, theta_p=thp)
-
-
-def build_option_set(name: str, nx: int, ny: int, nz: int, n_part: int, cap: int,
-                     device="cuda", mesh=None):
-    """Option set ``name`` through ``run.build_model`` (the uniform case for
-    mesoscale, warm_bubble for les), its initial dycore state replaced by
-    the set's: -> (CoupledModel, CoupledState).  With ``mesh``, this rank's
-    part of it (``driver.decompose``), the mesoscale particles' tails lifted
-    (``lift_tails``) over the whole domain before the cut; the whole-domain
-    state is freed before the return."""
-    import dataclasses
-
-    from wrf_partmc_tpu_torch import run
-    from wrf_partmc_tpu_torch.models.coupled.driver import decompose
-
-    cfg = option_config(name, nx, ny, nz, n_part, cap)
-    case = "uniform" if name == "mesoscale" else "warm_bubble"
-    model, state = run.build_model(cfg, case, device=device)
-    dyn = (humid_sounding(state.dyn, model.grid) if name == "mesoscale"
-           else les_initial_dyn(cfg, model.grid))
-    state = dataclasses.replace(state, dyn=dyn)
-    if mesh is None:
-        return model, state
-    if name == "mesoscale":
-        state = lift_tails(state)
-    return decompose(model, state, mesh)
-
-
-def lift_tails(state, frac: float = 1e-6):
-    """``state`` with every particle's number lifted to at least ``frac`` of
-    the largest: the em_uniform blob's tails fall to 1e-14 of its peak,
-    where the monotonic limiter's outflow probabilities are round-off that
-    differs between the card and the CPU (tests/test_torch_options_coupled.py
-    starts from the same lift)."""
-    import dataclasses
-
-    import torch
-
-    num = state.aero.num
-    lifted = torch.where(num > 0, torch.clamp(num, min=frac * float(num.max())), num)
-    return dataclasses.replace(state, aero=dataclasses.replace(state.aero, num=lifted))
-
-
 def phase_card_vs_cpu_options():
     """One step of each option set on the card against the same step on the
     CPU, by ``compare_card_cpu``: the mesoscale set (YSU, slab LSM, Dudhia
@@ -2267,9 +2081,12 @@ def phase_card_vs_cpu_options():
     p'."""
     import torch
 
-    for name, (_, small) in OPTION_SETS.items():
+    from wrf_partmc_tpu_torch.option_sets import OPTION_SETS, build_option_set, lift_tails
+
+    for name, spec in OPTION_SETS.items():
+        small = spec.small
         model, state = build_option_set(name, *small, n_part=16, cap=32, device="cpu")
-        if name == "mesoscale":
+        if spec.lift_tails:
             state = lift_tails(state)
         out_cpu = model(state)
         out_gpu = model.to("cuda")(state.to("cuda")).to("cpu")
@@ -2359,7 +2176,9 @@ def phase_options_path(kernels: dict, name: str, n_timed: int = 6, n_split: int 
     LES set must run the TKE advance, the NBA stresses and Kessler."""
     import torch
 
-    (nx, ny, nz), _ = OPTION_SETS[name]
+    from wrf_partmc_tpu_torch.option_sets import OPTION_SETS, build_option_set
+
+    nx, ny, nz = OPTION_SETS[name].full
     t0 = time.perf_counter()
     model, state = build_option_set(name, nx, ny, nz, n_part=1000, cap=1280, device="cuda")
     torch.cuda.synchronize()
@@ -2431,196 +2250,9 @@ def phase_options_path(kernels: dict, name: str, n_timed: int = 6, n_split: int 
     return shapes
 
 
-# The file-driven paths (phases 20-23).  Every input is written under
-# build/ by the port's own tools: a wrfinput (Lambert projection, the 300 m
-# hill), per-level two-mode ICs, emissions from a SMOKE file and an
-# emissions.json of tests/test_make_emissions.py's schema, BCs from mozbc
-# on a synthetic MOZART file, and a PartMC .spec scenario shaped like
-# tests/test_spec_file.py's with hourly emission rows.
+# The file-driven paths (phases 20-23), on the inputs that
+# ``wrf_partmc_tpu_torch/tools/sample_inputs.py`` writes under build/.
 REAL_DIR = os.path.join(ROOT, "build", "real")
-
-
-def _write_text(path: str, text: str) -> str:
-    import textwrap
-
-    with open(path, "w") as fh:
-        fh.write(textwrap.dedent(text))
-    return path
-
-
-def write_spec_scenario(d: str, z_top_slab: float = 1000.0, hours: int = 24) -> str:
-    """A per-height PartMC scenario in ``d``: slabs at z = 0 and
-    ``z_top_slab``, each with its own ICs (the remote-continental modes of
-    tests/test_spec_file.py, fewer aloft, and a 6-bin sampled mode) and
-    gases, and ``hours`` hourly emission rows (SO2, NO2 and a diesel-like
-    OC/BC mode, with a diurnal cycle).  Returns the .spec path."""
-    import math
-
-    _write_text(f"{d}/aero_init_comp.dat", """\
-        # composition
-        OC               1.375
-        SO4              1
-        NH4              0.375
-        """)
-    bins = "diam 1e-8 2e-8 4e-8 8e-8 1.6e-7 3.2e-7 6.4e-7"
-    for name, scale in (("aero_init_dist.dat", 1.0), ("aero_init_dist_top.dat", 0.3)):
-        _write_text(f"{d}/{name}", f"""\
-            mode_name init_small
-            mass_frac aero_init_comp.dat
-            mode_type log_normal
-            num_conc {3.2e9 * scale:.4e}
-            geom_mean_diam 2e-8
-            log10_geom_std_dev 0.161
-
-            mode_name init_large
-            mass_frac aero_init_comp.dat
-            mode_type log_normal
-            num_conc {2.9e9 * scale:.4e}
-            geom_mean_diam 1.16e-7
-            log10_geom_std_dev 0.217
-
-            mode_name init_binned
-            mass_frac aero_init_comp.dat
-            mode_type sampled
-            {bins}
-            num_conc {" ".join(f"{v * scale:.3e}" for v in (1e8, 3e8, 5e8, 3e8, 1e8, 2e7))}
-            """)
-    _write_text(f"{d}/gas_init.dat", "NO 0.2\nNO2 1.0\nO3 50.0\nCO 80.0\nSO2 0.8\n")
-    _write_text(f"{d}/gas_init_top.dat", "NO 0.02\nNO2 0.3\nO3 70.0\nCO 60.0\n")
-    times = [3600.0 * h for h in range(hours)]
-    day = [0.5 + 0.5 * math.sin(math.pi * h / 12.0) ** 2 for h in range(hours)]
-    row = lambda vals: " ".join(f"{v:.6g}" for v in vals)
-    _write_text(f"{d}/gas_emit.dat", f"time {row(times)}\nrate {row([0.5] * hours)}\n"
-                f"SO2 {row(4.2e-9 * f for f in day)}\nNO2 {row(1.5e-9 * f for f in day)}\n")
-    _write_text(f"{d}/aero_emit_comp.dat", "OC 0.3\nBC 0.7\n")
-    _write_text(f"{d}/aero_emit_dist.dat", """\
-        mode_name diesel
-        mass_frac aero_emit_comp.dat
-        mode_type log_normal
-        num_conc 1.6e8
-        geom_mean_diam 5e-8
-        log10_geom_std_dev 0.24
-        """)
-    _write_text(f"{d}/aero_emit.dat", f"time {row(times)}\nrate {row(day)}\n"
-                f"dist {' '.join(['aero_emit_dist.dat'] * hours)}\n")
-    return _write_text(f"{d}/test.spec", f"""\
-        z                 0.0          {z_top_slab}
-        gas_data          gas_data.dat gas_data.dat
-        gas_init          gas_init.dat gas_init_top.dat
-        aero_data         aero_data.dat aero_data.dat
-        aero_init         aero_init_dist.dat aero_init_dist_top.dat
-        gas_emission      gas_emit.dat gas_emit.dat
-        aero_emission     aero_emit.dat aero_emit.dat
-        """)
-
-
-def write_smoke_inputs(d: str, ny: int, nx: int, hours: int = 3):
-    """A SMOKE-like NetCDF [T, ny, nx] (two aerosol sectors in kg m-2 s-1
-    over an urban core, and gas_SO2 in mol m-2 s-1) and an emissions.json
-    of the reference's schema.  Returns (smoke path, emissions.json path)."""
-    import numpy as np
-    from scipy.io import netcdf_file
-
-    y, x = np.meshgrid(np.linspace(-1, 1, ny), np.linspace(-1, 1, nx), indexing="ij")
-    core = np.exp(-4.0 * (x * x + y * y))
-    day = 0.5 + 0.5 * np.sin(np.pi * np.arange(hours) / 12.0) ** 2
-    field = lambda peak: (peak * day[:, None, None] * core[None]).astype(np.float32)
-    smoke = os.path.join(d, "smoke.nc")
-    with netcdf_file(smoke, "w", version=2) as f:
-        f.createDimension("time", hours)
-        f.createDimension("y", ny)
-        f.createDimension("x", nx)
-        f.createVariable("time", "f", ("time",))[:] = np.arange(hours) * 3600.0
-        for name, peak in (("traffic", 2.0e-9), ("cooking", 5.0e-10), ("gas_SO2", 2.0e-8)):
-            f.createVariable(name, "f", ("time", "y", "x"))[:] = field(peak)
-    spec = {"sources": [
-        {"source_name": "traffic", "source_class": 2, "weight_class": 2, "modes": [
-            {"diameter": 5e-8, "std": 1.7, "fractions": [0.6, 0.2, 0.0]},
-            {"diameter": 2e-7, "std": 1.9, "fractions": [0.1, 0.05, 0.05]}]},
-        {"source_name": "cooking", "source_class": 1, "weight_class": 1, "modes": [
-            {"diameter": 8.6e-8, "std": 1.9, "fractions": [0.9, 0.0, 0.1]}]}]}
-    spec_path = os.path.join(d, "emissions.json")
-    with open(spec_path, "w") as fh:
-        json.dump(spec, fh)
-    return smoke, spec_path
-
-
-# mozbc's map: gases as VMR (x 1e9 to ppb in run_mozbc), the MOSAIC bins'
-# aerosol as kg/kg mass mixing ratios of the synthetic MOZART species
-MOZBC_MAP = ["co -> CO", "o3 -> O3", "so2 -> SO2", "oc_a01 -> .02*OC1+.02*OC2+.24*SOA",
-             "oc_a02 -> .07*OC1+.07*OC2+.9*SOA", "bc_a01 -> CB1+CB2", "so4_a03 -> .13*SO4"]
-
-
-def real_namelist(nx: int, ny: int, nz: int, n_part: int, cap: int) -> str:
-    """``RUNNER_NAMELIST`` (the em_uniform runner: 2 km, dt 10 s, live
-    dynamics, emission, coagulation, deposition, transport) at nx x ny x nz
-    cells and ``n_part`` particles per cell (capacity ``cap``)."""
-    text = RUNNER_NAMELIST
-    for old, new in (("e_we   = 41", f"e_we   = {nx + 1}"), ("e_sn   = 41", f"e_sn   = {ny + 1}"),
-                     ("e_vert = 11", f"e_vert = {nz + 1}"),
-                     ("num_particles    = 1000", f"num_particles    = {n_part}"),
-                     ("max_particles    = 1280", f"max_particles    = {cap}")):
-        require(old in text, f"namelist: {old!r} not found")
-        text = text.replace(old, new)
-    return text
-
-
-def write_real_inputs(d: str, cfg) -> tuple:
-    """The real-data inputs for ``cfg``'s grid, each written by the port's
-    tools under ``d``: wrfinput (Lambert, the 300 m hill), per-level
-    two-mode ICs, emissions by ``convert_smoke``, BCs by ``run_mozbc`` on
-    ``write_synthetic_mozart``.  Returns ({flag: path}, {tool: seconds})."""
-    import numpy as np
-    import torch
-
-    from wrf_partmc_tpu_torch import constants as c
-    from wrf_partmc_tpu_torch.grid import make_grid
-    from wrf_partmc_tpu_torch.models.partmc.aero_data import make_aero_data
-    from wrf_partmc_tpu_torch.models.partmc.dist import concat_dists, make_mode
-    from wrf_partmc_tpu_torch.models.partmc.gas_data import make_gas_data
-    from wrf_partmc_tpu_torch.models.dycore.real import read_wrfinput
-    from wrf_partmc_tpu_torch.tools import make_emissions, make_inputs, mozbc
-
-    os.makedirs(d, exist_ok=True)
-    ad, gd = make_aero_data(), make_gas_data()
-    nz, ny, nx = cfg.domain.nz, cfg.domain.ny, cfg.domain.nx
-    grid = make_grid(cfg)
-    paths, secs = {}, {}
-
-    def timed(tool, fn):
-        t0 = time.perf_counter()
-        out = fn()
-        secs[tool] = time.perf_counter() - t0
-        return out
-
-    paths["wrfinput"] = os.path.join(d, "wrfinput.nc")
-    timed("write_wrfinput", lambda: make_inputs.write_wrfinput(paths["wrfinput"], cfg))
-    vf = np.zeros(ad.n_spec)
-    for name, frac in (("SO4", 0.5), ("NH4", 0.2), ("OC", 0.3)):
-        vf[ad.spec_by_name(name)] = frac
-    ic = concat_dists([make_mode(1.5e9, 4e-8, 1.6, vf), make_mode(6e8, 1.5e-7, 1.7, vf)])
-    fall = torch.exp(-grid.z_half / 1500.0)[:, None]         # fewer aloft
-    ic = dataclasses.replace(ic, num_conc=ic.num_conc * fall,
-                            geom_mean_diam=ic.geom_mean_diam.expand(nz, 2),
-                            log_geom_std=ic.log_geom_std.expand(nz, 2),
-                            vol_frac=ic.vol_frac.expand(nz, 2, ad.n_spec))
-    paths["ics"] = os.path.join(d, "ics.nc")
-    timed("write_ics", lambda: make_inputs.write_ics(paths["ics"], ic))
-    smoke, spec = write_smoke_inputs(d, ny, nx)
-    dz0 = float(grid.dz[0])
-    n_air = c.P0 / (c.R_D * c.T0) / 0.028964               # mol air m-3
-    paths["emissions"] = os.path.join(d, "emissions.nc")
-    timed("convert_smoke", lambda: make_emissions.convert_smoke(
-        smoke, spec, ad, ["poc", "pec", "pso4"], paths["emissions"], dz_surface=dz0,
-        gas_map={"gas_SO2": (gd.spec_by_name("SO2"), 1e9 / (dz0 * n_air))}, gas_n=gd.n_spec))
-    moz = os.path.join(d, "mozart.nc")
-    timed("write_synthetic_mozart", lambda: mozbc.write_synthetic_mozart(moz))
-    geo = read_wrfinput(paths["wrfinput"])
-    paths["bcs"] = os.path.join(d, "bcs.nc")
-    timed("run_mozbc", lambda: mozbc.run_mozbc(
-        moz, MOZBC_MAP, gd, ad, grid, geo["xlat"], geo["xlong"],
-        out_bcs=paths["bcs"]))
-    return paths, secs
 
 
 def phase_card_vs_cpu_files():
@@ -2637,11 +2269,13 @@ def phase_card_vs_cpu_files():
     there."""
     from wrf_partmc_tpu_torch import run
     from wrf_partmc_tpu_torch.config import namelist_to_config
+    from wrf_partmc_tpu_torch.tools.sample_inputs import (real_namelist, write_real_inputs,
+                                                          write_spec_scenario)
     from wrf_partmc_tpu_torch.utils.namelist import parse_namelist
 
     d = os.path.join(REAL_DIR, "small")
     cfg = namelist_to_config(parse_namelist(real_namelist(12, 12, 4, 16, 48)))
-    paths, _ = write_real_inputs(d, cfg)
+    paths = write_real_inputs(d, cfg)
     paths["spec"] = write_spec_scenario(d, z_top_slab=1000.0, hours=3)
     for label, keys in (("wrfinput+ics+emissions+bcs", ("wrfinput", "ics", "emissions", "bcs")),
                         ("spec", ("spec",))):
@@ -2666,6 +2300,7 @@ def _file_run(kernels: dict, tag: str, flags: list, steps: int, outdir: str):
     import torch
 
     from wrf_partmc_tpu_torch import run
+    from wrf_partmc_tpu_torch.tools.sample_inputs import RUNNER_NAMELIST
 
     nml = os.path.join(REAL_DIR, "namelist.input")
     with open(nml, "w") as fh:
@@ -2732,12 +2367,28 @@ def phase_real_path(kernels: dict, steps: int = 12):
     from wrf_partmc_tpu_torch.config import namelist_to_config
     from wrf_partmc_tpu_torch.grid import make_grid
     from wrf_partmc_tpu_torch.models.partmc.dist import dist_number_conc
-    from wrf_partmc_tpu_torch.tools.make_inputs import read_ics
+    from wrf_partmc_tpu_torch.tools import make_emissions, make_inputs, mozbc
+    from wrf_partmc_tpu_torch.tools.sample_inputs import RUNNER_NAMELIST, write_real_inputs
     from wrf_partmc_tpu_torch.utils.namelist import parse_namelist
 
     d = os.path.join(REAL_DIR, "full")
     cfg = namelist_to_config(parse_namelist(RUNNER_NAMELIST))
-    paths, secs = write_real_inputs(d, cfg)
+    secs = {}
+
+    def timed(tool, fn, args, kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        secs[tool] = time.perf_counter() - t0
+        return out
+    restore = patch_sites([(make_inputs, "write_wrfinput", "write_wrfinput"),
+                           (make_inputs, "write_ics", "write_ics"),
+                           (make_emissions, "convert_smoke", "convert_smoke"),
+                           (mozbc, "write_synthetic_mozart", "write_synthetic_mozart"),
+                           (mozbc, "run_mozbc", "run_mozbc")], timed)
+    try:
+        paths = write_real_inputs(d, cfg)
+    finally:
+        restore()
     print(f"[real] inputs at 40x40x10 by the port's tools: "
           + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items())
           + "; " + _sizes(paths.values()))
@@ -2745,7 +2396,7 @@ def phase_real_path(kernels: dict, steps: int = 12):
     flags = [a for k in ("wrfinput", "ics", "emissions", "bcs") for a in (f"--{k}", paths[k])]
     cs, cs0, w_max, shapes = _file_run(kernels, "real", flags, steps, out)
     grid = make_grid(cfg)
-    want = dist_number_conc(read_ics(paths["ics"]))
+    want = dist_number_conc(make_inputs.read_ics(paths["ics"]))
     got = _level_conc(cs0.to("cpu"), grid)
     ratio = got / want
     print(f"[real] represented number at the start / the ICs' dist_number_conc per level: "
@@ -2769,6 +2420,7 @@ def phase_spec_path(kernels: dict, steps: int = 6):
     from wrf_partmc_tpu_torch.models.partmc.aero_data import make_aero_data
     from wrf_partmc_tpu_torch.models.partmc.dist import dist_number_conc
     from wrf_partmc_tpu_torch.models.partmc.gas_data import make_gas_data
+    from wrf_partmc_tpu_torch.tools.sample_inputs import RUNNER_NAMELIST, write_spec_scenario
     from wrf_partmc_tpu_torch.utils import spec_file
     from wrf_partmc_tpu_torch.utils.namelist import parse_namelist
 
@@ -3127,8 +2779,11 @@ def build_path(kind: str, nx: int, ny: int, nz: int, n_part: int, cap: int, devi
         from wrf_partmc_tpu_torch.cares import build_cares_shape
 
         return build_cares_shape(nx, ny, nz, n_part=n_part, cap=cap, device=device, mesh=mesh)
+    from wrf_partmc_tpu_torch.option_sets import OPTION_SETS, build_option_set, lift_tails
+
     model, state = build_option_set(kind, nx, ny, nz, n_part, cap, device=device, mesh=mesh)
-    return model, (lift_tails(state) if mesh is None and kind == "mesoscale" else state)
+    lift = mesh is None and OPTION_SETS[kind].lift_tails
+    return model, (lift_tails(state) if lift else state)
 
 
 def rank_step(path: str, kind: str = "em_uniform"):
@@ -3765,6 +3420,8 @@ def run_decomposed(kernels: dict):
 
 def run_all(kernels: dict):
     """Phases 3-28, 30 and 31."""
+    from wrf_partmc_tpu_torch.option_sets import OPTION_SETS
+
     phase_kernels(kernels)
     phase_card_vs_cpu()
     shapes, captured = phase_main_path(kernels)

@@ -9,7 +9,7 @@ read.  On the card (``-m gpu``; skipped without one):
 three coupled steps with the graph (eager, capture, replay) against three
 with the dycore forced eager, bit for bit on the em_uniform build (ARW),
 the linear core, the CARES physics set and the mesoscale and LES option
-sets (``chip_smoke.OPTION_SETS``); a returned state outliving the
+sets (``option_sets.OPTION_SETS``); a returned state outliving the
 next replay; one capture per grid; and the counts.
 """
 
@@ -129,10 +129,9 @@ def _build(kind, device):
     if kind == "linear":
         return build(12, 12, 4, n_part=16, cap=48, dyn_opt="linear", device=device)
     if kind in ("mesoscale", "les"):
-        import chip_smoke
+        from wrf_partmc_tpu_torch.option_sets import OPTION_SETS, build_option_set
 
-        _, small = chip_smoke.OPTION_SETS[kind]
-        return chip_smoke.build_option_set(kind, *small, 16, 32, device=device)
+        return build_option_set(kind, *OPTION_SETS[kind].small, 16, 32, device=device)
     from wrf_partmc_tpu_torch.cares import build_cares_shape
 
     return build_cares_shape(12, 10, 8, n_part=16, cap=32, device=device)

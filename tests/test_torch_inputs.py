@@ -30,12 +30,11 @@ from wrf_partmc_tpu.tools import mozbc as jmozbc
 from wrf_partmc_tpu.utils import llxy as jllxy
 from wrf_partmc_tpu.utils import spec_file as jsf
 
-import chip_smoke as smoke
 from wrf_partmc_tpu_torch.convert import config_from_reference, from_numpy, to_numpy
 from wrf_partmc_tpu_torch.grid import make_grid
 from wrf_partmc_tpu_torch.models.partmc.aero_data import make_aero_data
 from wrf_partmc_tpu_torch.models.partmc.gas_data import make_gas_data
-from wrf_partmc_tpu_torch.tools import make_emissions, make_inputs, mozbc
+from wrf_partmc_tpu_torch.tools import make_emissions, make_inputs, mozbc, sample_inputs
 from wrf_partmc_tpu_torch.utils import llxy, spec_file
 
 JAD, JGD = jax_make_aero_data(), jax_make_gas_data()
@@ -107,9 +106,9 @@ def test_llxy_matches_jax(name):
 def scenario(tmp_path_factory):
     """tests/test_spec_file.py's scenario with a second slab whose modes
     differ, a sampled (binned) mode and 24 hourly emission rows
-    (``chip_smoke.write_spec_scenario``)."""
+    (``tools/sample_inputs.py::write_spec_scenario``)."""
     d = tmp_path_factory.mktemp("spec")
-    return smoke.write_spec_scenario(str(d), z_top_slab=3500.0, hours=24), d
+    return sample_inputs.write_spec_scenario(str(d), z_top_slab=3500.0, hours=24), d
 
 
 def test_spec_aero_dists(scenario):
@@ -261,9 +260,9 @@ def test_mozbc_matches_jax(tmp_path):
 # ------------------------------------------------------- make_emissions
 
 def test_convert_smoke_matches_jax(tmp_path):
-    """``chip_smoke.write_smoke_inputs``' SMOKE file (two sources, a gas
+    """``sample_inputs.write_smoke_inputs``' SMOKE file (two sources, a gas
     field) and emissions.json, converted by both packages."""
-    smoke_path, spec_path = smoke.write_smoke_inputs(str(tmp_path), 5, 6, hours=3)
+    smoke_path, spec_path = sample_inputs.write_smoke_inputs(str(tmp_path), 5, 6, hours=3)
     with open(spec_path) as f:
         assert len(json.load(f)["sources"]) == 2
     kw = dict(smoke_species=["poc", "pec", "pso4"], dz_surface=50.0,

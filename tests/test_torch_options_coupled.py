@@ -8,7 +8,7 @@ package's ``coupled_step`` on the CPU:
   NBA (sfs_opt=1), WENO5/WENO3 and Kessler from ``tests/test_les.py``'s
   warm bubble, without emission.
 
-Both sets are ``chip_smoke.py``'s (``option_config``, built by
+Both sets are ``option_sets.py``'s (``option_config``, built by
 ``build_option_set`` through the port's ``run.build_model``).  The JAX side
 is the JAX package's ``run.build_model`` with the port's ``Config`` and the
 same initial dycore state; the port's initial state must equal it.
@@ -48,7 +48,7 @@ from wrf_partmc_tpu.models.physics import cumulus as jcumulus
 from wrf_partmc_tpu.run import build_model as jax_build_model
 from wrf_partmc_tpu.utils import rng as jrng
 
-import chip_smoke as smoke
+from wrf_partmc_tpu_torch import option_sets
 from wrf_partmc_tpu_torch.convert import config_from_reference, from_numpy, to_numpy
 
 N_PART, CAP = 16, 32
@@ -58,7 +58,8 @@ def _jax_mesoscale(cfg):
     jcfg = config_from_reference(cfg, jconfig.Config)
     grid, ad, gd, scn, cs, exch, _ = jax_build_model(jcfg, "uniform", 0)
     host = jax.tree.map(np.asarray, cs)
-    dyn = smoke.humid_sounding(from_numpy(host.dyn), from_numpy(jax.tree.map(np.asarray, grid)))
+    dyn = option_sets.humid_sounding(from_numpy(host.dyn),
+                                     from_numpy(jax.tree.map(np.asarray, grid)))
     cs = dataclasses.replace(cs, dyn=dataclasses.replace(
         cs.dyn, moist=jnp.asarray(dyn.moist.numpy())))
     return jcfg, grid, ad, gd, scn, cs, exch
@@ -86,7 +87,7 @@ def stepped_sets():
     with concurrent.futures.ThreadPoolExecutor(len(SETS)) as pool:
         for name in sorted(SETS):
             shape, jax_build = SETS[name]
-            model, state = smoke.build_option_set(name, *shape, N_PART, CAP, device="cpu")
+            model, state = option_sets.build_option_set(name, *shape, N_PART, CAP, device="cpu")
             jcfg, grid, ad, gd, scn, cs, exch = jax_build(model.cfg)
             key = jrng.base_key(0)
             j0 = jax.tree.map(np.asarray, cs)
@@ -226,4 +227,4 @@ def test_default_device_is_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default builds on it")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        smoke.build_option_set(name, 6, 6, 4, n_part=4, cap=8)
+        option_sets.build_option_set(name, 6, 6, 4, n_part=4, cap=8)

@@ -51,7 +51,6 @@ import sys
 import numpy as np
 import torch
 sys.path.insert(0, {repo!r})
-torch.set_num_threads(1)
 from wrf_partmc_tpu_torch.parallel import distributed as pdist, halo
 from wrf_partmc_tpu_torch.parallel.mesh import shard_field
 from wrf_partmc_tpu_torch.ops import stencil
@@ -96,8 +95,7 @@ def ranks(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("parallel") / "out.pt")
     code = _RANK.format(repo=REPO, timeout=TIMEOUT_S, shape=SHAPE, h=H, draw=DRAW,
                         path=path)
-    results = spawn(4, [sys.executable, "-c", code], TIMEOUT_S,
-                    env=dict(os.environ, OMP_NUM_THREADS="1"), cwd=REPO)
+    results = spawn(4, [sys.executable, "-c", code], TIMEOUT_S, cwd=REPO)
     for r, (code_r, out) in enumerate(results):
         assert code_r == 0, f"rank {r} exited {code_r}:\n{out[-3000:]}"
     return [torch.load(f"{path}.{r}", weights_only=False) for r in range(4)]

@@ -5,8 +5,8 @@ JAX package on the CPU.
   over the hill, from a wrfinput written by the JAX package's tool;
 - ``run.build_model``'s file branches (wrfinput; spec; ics; wrfinput + ics +
   emissions + mozbc BCs) against the JAX ``build_model`` at 6x5x4 with 8
-  particles per cell, on the inputs ``chip_smoke.py`` writes (the port's
-  tools at the runner's namelist);
+  particles per cell, on the inputs ``tools/sample_inputs.py`` writes (the
+  port's tools at the runner's namelist);
 - one coupled step from the real-data state (wrfinput, ICs, SMOKE
   emissions, BCs) against the JAX ``coupled_step``, and the BC time-slab
   swap: the step after ``set_scenario`` at a ``bc_times`` boundary uses the
@@ -44,7 +44,6 @@ from wrf_partmc_tpu.run import build_model as jax_build_model
 from wrf_partmc_tpu.tools.make_inputs import write_wrfinput as jax_write_wrfinput
 from wrf_partmc_tpu.utils import rng as jrng
 
-import chip_smoke as smoke
 from wrf_partmc_tpu_torch import constants as c
 from wrf_partmc_tpu_torch import run as prun
 from wrf_partmc_tpu_torch.config import namelist_to_config
@@ -54,7 +53,7 @@ from wrf_partmc_tpu_torch.models.dycore import real
 from wrf_partmc_tpu_torch.models.partmc.aero_data import make_aero_data
 from wrf_partmc_tpu_torch.models.partmc.dist import make_mode
 from wrf_partmc_tpu_torch.models.partmc.gas_data import make_gas_data
-from wrf_partmc_tpu_torch.tools import make_inputs
+from wrf_partmc_tpu_torch.tools import make_inputs, sample_inputs
 from wrf_partmc_tpu_torch.utils.namelist import parse_namelist
 from wrf_partmc_tpu_torch.utils.tree import tensor_leaves
 
@@ -71,14 +70,14 @@ def host(tree):
 
 @pytest.fixture(scope="module")
 def inputs(tmp_path_factory):
-    """The runner's config at 6x5x4 and its input files: chip_smoke's
+    """The runner's config at 6x5x4 and its input files: sample_inputs'
     real-data inputs and .spec scenario, and a BC file whose two time slabs
     (t = 0 and t = 10 s, one step apart) differ: no background and no
     dilution, then 100 ppb O3 mixed in at 1e-3 s-1."""
     d = tmp_path_factory.mktemp("real")
-    cfg = namelist_to_config(parse_namelist(smoke.real_namelist(NX, NY, NZ, N_PART, CAP)))
-    paths, _ = smoke.write_real_inputs(str(d), cfg)
-    paths["spec"] = smoke.write_spec_scenario(str(d), z_top_slab=1000.0, hours=3)
+    cfg = namelist_to_config(parse_namelist(sample_inputs.real_namelist(NX, NY, NZ, N_PART, CAP)))
+    paths = sample_inputs.write_real_inputs(str(d), cfg)
+    paths["spec"] = sample_inputs.write_spec_scenario(str(d), z_top_slab=1000.0, hours=3)
     ad, gd = make_aero_data(), make_gas_data()
     vf = np.zeros(ad.n_spec)
     vf[ad.spec_by_name("SO4")] = 1.0
@@ -269,7 +268,7 @@ def test_main_runs_the_file_flags(inputs, tmp_path):
     written, finite totals."""
     _, paths = inputs
     nml = tmp_path / "namelist.input"
-    nml.write_text(smoke.real_namelist(NX, NY, NZ, N_PART, CAP))
+    nml.write_text(sample_inputs.real_namelist(NX, NY, NZ, N_PART, CAP))
     for flags in (["--wrfinput", paths["wrfinput"], "--ics", paths["ics"], "--emissions",
                    paths["emissions"], "--bcs", paths["bcs"]], ["--spec", paths["spec"]]):
         out = tmp_path / flags[0][2:]

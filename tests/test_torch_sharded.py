@@ -72,7 +72,6 @@ _RANK = """
 import sys
 import torch
 sys.path.insert(0, {repo!r})
-torch.set_num_threads(1)
 from wrf_partmc_tpu_torch.parallel import distributed as pdist
 from wrf_partmc_tpu_torch.parallel.mesh import shard_field
 from wrf_partmc_tpu_torch.utils.tree import tree_map
@@ -97,9 +96,9 @@ elif task["kind"] == "dycore":
         cut = lambda t: block_of(t, mesh, grid.ny, grid.nx)
         out[name] = solve_step(tree_map(cut, dyn), block_grid(grid, mesh), cfg)
 elif task["kind"] == "options":
-    import chip_smoke
     from wrf_partmc_tpu_torch.models.coupled import transport
     from wrf_partmc_tpu_torch.models.coupled.driver import decompose
+    from wrf_partmc_tpu_torch.option_sets import build_option_set
     from wrf_partmc_tpu_torch.parallel import halo
     cap = {{}}
     nfp, vop = transport.normalized_face_probs, transport.vertical_operator
@@ -107,7 +106,7 @@ elif task["kind"] == "options":
     transport.vertical_operator = lambda *a, **k: cap.setdefault("R", vop(*a, **k))
     out = {{}}
     for name, (args, state) in task["sets"].items():
-        model, _ = chip_smoke.build_option_set(name, *args, device="cpu")
+        model, _ = build_option_set(name, *args, device="cpu")
         model, state = decompose(model, state, mesh)
         halo.reset_counts()
         step = model(state)
@@ -132,8 +131,7 @@ def run_ranks(tmp_path, name: str, task: dict, n: int = 4):
     path = str(tmp_path / f"{name}.pt")
     torch.save(task, path)
     code = _RANK.format(repo=REPO, timeout=RANK_TIMEOUT_S, path=path)
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    results = spawn(n, [sys.executable, "-c", code], RANK_TIMEOUT_S, env=env, cwd=REPO)
+    results = spawn(n, [sys.executable, "-c", code], RANK_TIMEOUT_S, cwd=REPO)
     for r, (code_r, out) in enumerate(results):
         assert code_r == 0, f"rank {r} exited {code_r}:\n{out[-3000:]}"
     return [torch.load(f"{path}.{r}", weights_only=False) for r in range(n)]

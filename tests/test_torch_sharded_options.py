@@ -7,7 +7,7 @@ particle's number lifted to 1e-6 of the largest, LES 12x12x8; 16
 particles per cell, capacity 32).  The reference is JAX's
 ``coupled_step(..., mesh=make_mesh(devices[:4], (2, 2)))`` on the
 conftest's virtual CPU devices, handed the whole-domain state.  The port's
-ranks build the set's whole-domain model (``chip_smoke.build_option_set``),
+ranks build the set's whole-domain model (``option_sets.build_option_set``),
 cut it and the JAX state to their blocks with ``driver.decompose`` (the
 counterpart of handing a whole-domain state to the mesh step) and take one
 step; both sets ride one spawn.  Each rank's blocks are held at
@@ -57,7 +57,6 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke as smoke
 from test_torch_options_coupled import CAP, N_PART, SETS
 from test_torch_sharded import RANK_TIMEOUT_S, aero_block, block, ranks_in_background
 from wrf_partmc_tpu.models.coupled import transport as jtransport
@@ -65,6 +64,7 @@ from wrf_partmc_tpu.models.coupled.driver import coupled_step
 from wrf_partmc_tpu.models.partmc.aero_data import make_aero_data as jax_make_aero_data
 from wrf_partmc_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from wrf_partmc_tpu.utils import rng as jrng
+from wrf_partmc_tpu_torch import option_sets
 from wrf_partmc_tpu_torch.convert import from_numpy, to_numpy
 from wrf_partmc_tpu_torch.models.coupled import transport
 from wrf_partmc_tpu_torch.models.coupled.driver import decompose
@@ -85,9 +85,9 @@ PROB_RTOL, PROB_ATOL = 1e-4, 1e-6
 
 def _initial(name):
     """(port's whole-domain model, JAX pieces, the JAX initial state, the
-    mesoscale particles lifted as ``chip_smoke.lift_tails`` lifts them)."""
+    mesoscale particles lifted as ``option_sets.lift_tails`` lifts them)."""
     shape, jax_build = SETS[name]
-    model, _ = smoke.build_option_set(name, *shape, N_PART, CAP, device="cpu")
+    model, _ = option_sets.build_option_set(name, *shape, N_PART, CAP, device="cpu")
     jcfg, grid, ad, gd, scn, cs, exch = jax_build(model.cfg)
     if name == "mesoscale":
         num = cs.aero.num
@@ -300,13 +300,13 @@ def test_blocks_against_undecomposed(runs, name):
 def test_build_option_set_world_of_one(name):
     """``build_option_set(mesh=...)`` in a world of one is the whole build
     (mesoscale: its tails lifted) cut by ``decompose`` to the (1, 1) block."""
-    ref_model, ref = smoke.build_option_set(name, 6, 6, 4, 4, 8, device="cpu")
+    ref_model, ref = option_sets.build_option_set(name, 6, 6, 4, 4, 8, device="cpu")
     if name == "mesoscale":
-        ref = smoke.lift_tails(ref)
+        ref = option_sets.lift_tails(ref)
     pdist.init(f"127.0.0.1:{free_port()}", 1, 0, "cpu", timeout_s=RANK_TIMEOUT_S)
     try:
         mesh = pdist.global_mesh()
-        model, state = smoke.build_option_set(name, 6, 6, 4, 4, 8, device="cpu", mesh=mesh)
+        model, state = option_sets.build_option_set(name, 6, 6, 4, 4, 8, device="cpu", mesh=mesh)
         with pytest.raises(ValueError, match="already decomposed"):
             decompose(model, state, mesh)
     finally:
